@@ -8,8 +8,9 @@
 3. Kernels: holds each kernel against its plain PyTorch version at the
    train step's shapes (B = 4096 rays x K = 192 samples for composite;
    N = 786,432 rows x C = 160 channels into R = 16,384 rows for binsum),
-   and times the kernel, the plain version and, for binsum, the one-call
-   yardstick ``index_add_`` (which the port never calls).
+   and times the kernel alone, its wrapper, the plain version and, for
+   binsum, the one-call yardstick ``index_add_`` (which the port never
+   calls).
    Then runs one train step and one eval render of a tiny model=tensorf on
    the card and on the CPU (the plain versions) and compares the loss, the
    image and every gradient.
@@ -32,7 +33,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LOG_DIR = ROOT / "chiprun_out" / "chip_smoke"
+LOG_DIR = ROOT / "log" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 PSNR_BAR = 17.0
@@ -96,6 +97,7 @@ def composite_inputs(torch, dev, B, K, gen):
 
 def check_composite(torch, dev, gen):
     from nmf_tpu_torch.ops.kernels import composite as C
+    from nmf_tpu_torch.ops.kernels.build import ptr
 
     B, K = 4096, 192
     sigma, dists, rgb, z = composite_inputs(torch, dev, B, K, gen)
@@ -133,16 +135,29 @@ def check_composite(torch, dev, gen):
     bwd_err = max_err(torch, pairs, 1e-4, 1e-5, "composite backward")
     torch.cuda.synchronize()
 
-    # timing, the train step's weights-only entry
+    # timing, the train step's weights-only entry. The kernel: back-to-back
+    # launches of the C entry on preallocated buffers, so the events read
+    # device time (through autograd the host work is about as long as the
+    # kernel and varies with the host). The wrapper and the plain version:
+    # as the train step calls them.
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    w_buf, d_buf = torch.empty_like(sigma), torch.empty_like(sigma)
+    fwd_ms = time_ms(torch, lambda: C.COMPOSITE_FWD(
+        ptr(sigma), ptr(dists), None, None, ptr(w_buf), None, None, None,
+        B, K, stream))
+    bwd_ms = time_ms(torch, lambda: C.COMPOSITE_BWD(
+        ptr(sigma), ptr(dists), None, None, ptr(g_w), None, None, None,
+        ptr(d_buf), None, None, None, B, K, stream))
     with torch.no_grad():
-        fwd_ms = time_ms(torch, lambda: C.transmittance_weights(sigma, dists))
+        fwd_wrap_ms = time_ms(
+            torch, lambda: C.transmittance_weights(sigma, dists))
         fwd_plain_ms = time_ms(
             torch, lambda: C.transmittance_weights_plain(sigma, dists))
     s_k = sigma.clone().requires_grad_(True)
     w_k = C.transmittance_weights(s_k, dists)
     s_p = sigma.clone().requires_grad_(True)
     w_p = C.transmittance_weights_plain(s_p, dists)
-    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+    bwd_wrap_ms = time_ms(torch, lambda: torch.autograd.grad(
         w_k, s_k, g_w, retain_graph=True))
     bwd_plain_ms = time_ms(torch, lambda: torch.autograd.grad(
         w_p, s_p, g_w, retain_graph=True))
@@ -154,14 +169,16 @@ def check_composite(torch, dev, gen):
          "source": "nmf_tpu_torch/csrc/composite.cu",
          "replaces": "nmf_tpu/ops/pallas/composite.py:28",
          "kernel": C.COMPOSITE_FWD, "max_abs_err": fwd_err, "ms": fwd_ms,
-         "plain_ms": fwd_plain_ms, "bound_ms": fb, "bound_by": fby,
-         "library_ms": None, "shape": f"B={B} K={K} weights-only"},
+         "wrapper_ms": fwd_wrap_ms, "plain_ms": fwd_plain_ms,
+         "bound_ms": fb, "bound_by": fby, "library_ms": None,
+         "shape": f"B={B} K={K} weights-only"},
         {"name": "composite_bwd", "route": "cuda",
          "source": "nmf_tpu_torch/csrc/composite.cu",
          "replaces": "nmf_tpu/ops/pallas/composite.py:51",
          "kernel": C.COMPOSITE_BWD, "max_abs_err": bwd_err, "ms": bwd_ms,
-         "plain_ms": bwd_plain_ms, "bound_ms": bb, "bound_by": bby,
-         "library_ms": None, "shape": f"B={B} K={K} weights-only"},
+         "wrapper_ms": bwd_wrap_ms, "plain_ms": bwd_plain_ms,
+         "bound_ms": bb, "bound_by": bby, "library_ms": None,
+         "shape": f"B={B} K={K} weights-only"},
     ]
 
 
@@ -183,6 +200,7 @@ def binsum_inputs(torch, dev, gen, n_rays=4096, K=192, C=160, H=128, W=128):
 
 def check_binsum(torch, dev, gen):
     from nmf_tpu_torch.ops.kernels import binsum as S
+    from nmf_tpu_torch.ops.kernels.build import ptr
 
     idx, vals, R = binsum_inputs(torch, dev, gen)
     N, C = vals.shape
@@ -193,7 +211,13 @@ def check_binsum(torch, dev, gen):
     err = max_err(torch, [(out, ref)], 1e-4, 1e-4, "binsum")
     keep = (idx >= 0) & (idx < R)
     idx_in, vals_in = idx[keep].long(), vals[keep]
-    ms = time_ms(torch, lambda: S.binsum_rows(idx, vals, R))
+    # the kernel alone accumulates into one preallocated buffer; the
+    # wrapper also zeroes a fresh one, as the train step's call does
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out_buf = torch.zeros((R, C), device=dev)
+    ms = time_ms(torch, lambda: S.BINSUM(ptr(idx), ptr(vals), ptr(out_buf),
+                                         N, C, R, stream))
+    wrap_ms = time_ms(torch, lambda: S.binsum_rows(idx, vals, R))
     plain_ms = time_ms(torch, lambda: S.binsum_rows_plain(idx, vals, R))
     lib_ms = time_ms(torch, lambda: torch.zeros(
         (R, C), device=dev).index_add_(0, idx_in, vals_in))
@@ -202,8 +226,8 @@ def check_binsum(torch, dev, gen):
              "source": "nmf_tpu_torch/csrc/binsum.cu",
              "replaces": "nmf_tpu/ops/pallas/binsum.py:40",
              "kernel": S.BINSUM, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-             "library_ms": lib_ms, "shape": f"N={N} C={C} R={R}"}]
+             "wrapper_ms": wrap_ms, "plain_ms": plain_ms, "bound_ms": b,
+             "bound_by": by, "library_ms": lib_ms, "shape": f"N={N} C={C} R={R}"}]
 
 
 def check_small_path(torch, dev):
@@ -274,7 +298,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else f"{name}, power limit not read"
-    print(f"card: {card}")
+    print(card)
     nvcc = [ln for ln in subprocess.run(
         [build.find_nvcc(), "--version"], capture_output=True, text=True,
         timeout=60).stdout.splitlines() if "release" in ln]
@@ -293,7 +317,8 @@ def main():
     kernels = check_composite(torch, dev, gen) + check_binsum(torch, dev, gen)
     for k in kernels:
         print(f"kernel {k['name']} ({k['shape']}): max_abs_err "
-              f"{k['max_abs_err']:.3e}, {k['ms']:.4f} ms (plain "
+              f"{k['max_abs_err']:.3e}, {k['ms']:.4f} ms (wrapper "
+              f"{k['wrapper_ms']:.4f}, plain "
               f"{k['plain_ms']:.4f}, bound {k['bound_ms']:.4f} by "
               f"{k['bound_by']}, library {k['library_ms']})")
     print(f"small path, card vs CPU: max_abs_err {check_small_path(torch, dev):.3e}")

@@ -65,60 +65,3 @@ def make_sphere_dataset(n_views=8, H=64, W=64, radius=4.0, seed=0,
         "white_bg": True,
     }
 
-
-# ---------------------------------------------------------------------------
-# Shiny protocol scene: specular spheres under an analytic HDR environment.
-# Gives every metric of the reference's stats pipeline (renderer.py:508-532)
-# an analytic ground truth: rgb/alpha, world normals, specular tints, and
-# the environment map itself (for envmap_psnr_top recovery).
-# ---------------------------------------------------------------------------
-
-_SHINY_SPHERES = [
-    # center, radius, albedo, f0 color (tint), roughness
-    (np.array([-0.72, -0.5, -0.1]), 0.48, np.array([0.2, 0.05, 0.05]),
-     np.array([1.0, 0.71, 0.29]), 0.08),   # gold, near-mirror
-    (np.array([0.72, -0.5, -0.1]), 0.48, np.array([0.05, 0.08, 0.35]),
-     np.array([0.04, 0.04, 0.04]), 0.5),   # blue dielectric, rough
-    (np.array([0.0, 0.62, 0.15]), 0.52, np.array([0.06, 0.06, 0.06]),
-     np.array([0.95, 0.93, 0.88]), 0.22),  # silver, medium
-]
-
-# Second protocol scene: a tight cluster around a large near-mirror ball.
-# Mutual solid angles are big, so one-bounce interreflections (which the
-# MC GT term renders and the microfacet model's retrace pass can actually
-# fit) dominate the specular content -- the scene that separates NMF from
-# env-only shading models.
-_CLUSTER_SPHERES = [
-    (np.array([0.0, 0.0, 0.05]), 0.62, np.array([0.04, 0.04, 0.04]),
-     np.array([0.95, 0.93, 0.88]), 0.03),   # big silver mirror
-    (np.array([-0.85, -0.35, -0.35]), 0.35, np.array([0.18, 0.06, 0.02]),
-     np.array([1.0, 0.71, 0.29]), 0.25),    # gold, glossy
-    (np.array([0.75, -0.5, -0.3]), 0.32, np.array([0.1, 0.12, 0.45]),
-     np.array([0.04, 0.04, 0.04]), 0.12),   # blue dielectric, sharp
-    (np.array([0.15, 0.85, -0.4]), 0.3, np.array([0.2, 0.1, 0.05]),
-     np.array([0.95, 0.64, 0.54]), 0.5),    # copper, rough
-]
-
-
-# Third protocol scene: a WELL-POSED inverse-rendering arrangement. The
-# shiny/cluster scenes are intentionally brutal (dark near-pure-specular
-# spheres: geometry is unanchored by diffuse multiview consistency and the
-# envmap is under-determined -- the identifiability oracle's null space,
-# BASELINE.md). Studio adds what real capture scenes have: bright diffuse
-# anchors (rough 0.9+, albedo 0.7) that pin geometry and the envmap's
-# coarse scales, a mid-roughness glossy pair filling the footprint
-# spectrum, and ONE near-mirror ball exercising the retrace/envmap path.
-# On this scene the NMF decomposition is identifiable, so it carries the
-# framework's quality-parity headline.
-_STUDIO_SPHERES = [
-    (np.array([0.0, -0.15, 0.3]), 0.48, np.array([0.03, 0.03, 0.03]),
-     np.array([0.95, 0.93, 0.88]), 0.04),   # silver near-mirror (the test)
-    (np.array([-0.85, -0.45, -0.25]), 0.38, np.array([0.5, 0.09, 0.06]),
-     np.array([0.03, 0.03, 0.03]), 0.9),    # bright red diffuse anchor
-    (np.array([0.85, -0.45, -0.25]), 0.38, np.array([0.45, 0.44, 0.4]),
-     np.array([0.03, 0.03, 0.03]), 0.95),   # bright neutral diffuse anchor
-    (np.array([-0.15, 0.85, -0.3]), 0.34, np.array([0.15, 0.08, 0.02]),
-     np.array([1.0, 0.71, 0.29]), 0.2),     # gold glossy (mid roughness)
-    (np.array([0.55, 0.55, -0.42]), 0.3, np.array([0.08, 0.25, 0.5]),
-     np.array([0.04, 0.04, 0.04]), 0.45),   # blue semi-rough
-]
