@@ -41,15 +41,13 @@ class FactorGrid(nn.Module):
     def n_comp(self) -> int:
         return self.planes[0].shape[0]
 
-    def query(self, coords, dtype=None):
+    def query(self, coords):
         """coords: (..., 3) normalized to [-1, 1] -> list of 3 (..., C)
-        factor products, gathered in ``dtype`` (None: the parameters')."""
+        factor products, gathered in the parameters' dtype."""
         feats = []
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             plane, line = self.planes[i], self.lines[i]
-            if dtype is not None:
-                plane, line = plane.to(dtype), line.to(dtype)
             pc = quad_gather_2d(plane, torch.stack(
                 [coords[..., m0], coords[..., m1]], dim=-1))
             lc = line_interp(line, coords[..., VEC_MODE[i]])
@@ -138,15 +136,11 @@ class TensorVMSplit(nn.Module):
     def _contract_density(feats):
         return sum(f.sum(dim=-1) for f in feats)
 
-    def compute_densityfeature(self, xyz, activate=True,
-                               use_gather_dtype=False):
-        """World xyz (..., 3/4) -> density (...). use_gather_dtype=True
-        gathers in ``gather_dtype``, as compute_all does."""
+    def compute_densityfeature(self, xyz):
+        """World xyz (..., 3/4) -> density (...), gathered in f32."""
         coords = self.normalize_coord(xyz)[..., :3]
-        gd = (torch.bfloat16 if use_gather_dtype
-              and self.gather_dtype == "bf16" else None)
-        sig = self._contract_density(self.density_rf.query(coords, dtype=gd))
-        return self.feature2density(sig) if activate else sig
+        return self.feature2density(
+            self._contract_density(self.density_rf.query(coords)))
 
     def compute_appfeature(self, xyz):
         coords = self.normalize_coord(xyz)[..., :3]
@@ -185,10 +179,9 @@ class TensorVMSplit(nn.Module):
         return total
 
     # ---- schedule events (host side, in place) ----
-    def check_schedule(self, iteration: int, batch_mul: int = 1) -> bool:
-        upsamp = [i * batch_mul for i in self.upsamp_list]
-        if iteration in upsamp:
-            n_voxels = self.n_voxel_list[upsamp.index(iteration)]
+    def check_schedule(self, iteration: int) -> bool:
+        if iteration in self.upsamp_list:
+            n_voxels = self.n_voxel_list[self.upsamp_list.index(iteration)]
             self.upsample(n_to_reso(n_voxels, self._aabb_np()))
             return True
         return False

@@ -10,7 +10,7 @@ class TensoRFShade(nn.Module):
         super().__init__()
         self.diffuse_module = diffuse_module
 
-    def check_schedule(self, iteration: int, batch_mul: int = 1) -> bool:
+    def check_schedule(self, iteration: int) -> bool:
         return False
 
     def shade(self, xyz, xyz_normed, app_features, viewdirs, normals,

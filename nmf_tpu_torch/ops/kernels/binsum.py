@@ -38,6 +38,8 @@ def binsum_rows(idx, vals, num_rows: int):
     check_cuda("vals", vals, torch.float32, (N, C), vals.device)
     check_cuda("idx", idx, torch.int32, (N,), vals.device)
     out = torch.zeros((num_rows, C), dtype=torch.float32, device=vals.device)
-    BINSUM(ptr(idx), ptr(vals), ptr(out), N, C, num_rows,
-           torch.cuda.current_stream(vals.device).cuda_stream)
+    # the C entry launches on the current device
+    with torch.cuda.device(vals.device):
+        BINSUM(ptr(idx), ptr(vals), ptr(out), N, C, num_rows,
+               torch.cuda.current_stream(vals.device).cuda_stream)
     return out

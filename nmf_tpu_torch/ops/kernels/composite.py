@@ -37,6 +37,8 @@ def transmittance_weights_plain(sigma, dists):
 
 
 def _stream(device):
+    """The device's current stream; the C entries launch on the current
+    device, so each launch below runs under ``torch.cuda.device``."""
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -54,9 +56,10 @@ class _Composite(torch.autograd.Function):
             rgb_map = sigma.new_empty((B, 3))
             acc = sigma.new_empty((B,))
             depth = sigma.new_empty((B,))
-        COMPOSITE_FWD(ptr(sigma), ptr(dists), ptr(rgb), ptr(z_vals),
-                      ptr(weights), ptr(rgb_map), ptr(acc), ptr(depth), B, K,
-                      _stream(sigma.device))
+        with torch.cuda.device(sigma.device):
+            COMPOSITE_FWD(ptr(sigma), ptr(dists), ptr(rgb), ptr(z_vals),
+                          ptr(weights), ptr(rgb_map), ptr(acc), ptr(depth),
+                          B, K, _stream(sigma.device))
         ctx.save_for_backward(sigma, dists, rgb, z_vals)
         ctx.full = full
         return (weights, rgb_map, acc, depth) if full else weights
@@ -74,10 +77,11 @@ class _Composite(torch.autograd.Function):
         d_dist = torch.empty_like(dists) if need[1] else None
         d_rgb = torch.empty_like(rgb) if ctx.full and need[2] else None
         d_z = torch.empty_like(z_vals) if ctx.full and need[3] else None
-        COMPOSITE_BWD(ptr(sigma), ptr(dists), ptr(rgb), ptr(z_vals),
-                      ptr(g_w), ptr(g_rgb), ptr(g_acc), ptr(g_depth),
-                      ptr(d_sigma), ptr(d_dist), ptr(d_rgb), ptr(d_z), B, K,
-                      _stream(sigma.device))
+        with torch.cuda.device(sigma.device):
+            COMPOSITE_BWD(ptr(sigma), ptr(dists), ptr(rgb), ptr(z_vals),
+                          ptr(g_w), ptr(g_rgb), ptr(g_acc), ptr(g_depth),
+                          ptr(d_sigma), ptr(d_dist), ptr(d_rgb), ptr(d_z),
+                          B, K, _stream(sigma.device))
         return (d_sigma if need[0] else None), d_dist, d_rgb, d_z
 
 

@@ -34,13 +34,13 @@ class NMF(nn.Module):
         self.eval_batch_size = int(eval_batch_size)
         self.lr_scale = float(lr_scale)
 
-    def check_schedule(self, iteration: int, batch_mul: int = 1) -> bool:
+    def check_schedule(self, iteration: int) -> bool:
         """Host-side schedule tick, in place. Returns whether the optimizer
         must be rebuilt. The sampler's mask rebuild sees the field before
         this tick's upsample, as in nmf_tpu."""
-        m_changed = self.model.check_schedule(iteration, batch_mul)
-        s_changed = self.sampler.check_schedule(iteration, batch_mul, self.rf)
-        r_changed = self.rf.check_schedule(iteration, batch_mul)
+        m_changed = self.model.check_schedule(iteration)
+        s_changed = self.sampler.check_schedule(iteration, self.rf)
+        r_changed = self.rf.check_schedule(iteration)
         changed = m_changed or s_changed or r_changed
         if changed:
             self.sampler.update(self.rf, init=True)

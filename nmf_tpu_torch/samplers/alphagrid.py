@@ -90,8 +90,8 @@ class AlphaGridSampler(nn.Module):
             self.alpha_mask = AlphaGridMask(self.aabb, ones, ones.clone())
         return self
 
-    def check_schedule(self, iteration: int, batch_mul: int, rf) -> bool:
-        if iteration in [i * batch_mul for i in self.update_list]:
+    def check_schedule(self, iteration: int, rf) -> bool:
+        if iteration in self.update_list:
             self.update(rf)
             return True
         return False

@@ -134,7 +134,7 @@ def main(argv=None):
                    f"N={nmf.sampler.n_samples} K={nmf.max_samples_per_ray}, "
                    f"{valid:.1f} valid samples/ray",
                    *profile_window(step, args.steps))
-        if nmf.check_schedule(it + 1, 1):
+        if nmf.check_schedule(it + 1):
             opt = make_optimizer(nmf, params, n_iters)
             state["l1_rest"] = True
 

@@ -109,7 +109,7 @@ def reconstruction(cfg, log=print):
                            rays_per_sec=rays_per_sec)
             log(f"iter {it:06d} psnr={psnr:.2f} loss={loss:.5f} "
                 f"rays/s={rays_per_sec:.0f}")
-        if nmf.check_schedule(it + 1, 1):
+        if nmf.check_schedule(it + 1):
             opt = make_optimizer(nmf, params, n_iters)
             l1_rest = True
             log(f"iter {it}: schedule event -> optimizer reinit; "

@@ -82,3 +82,29 @@ def test_quad_gather_backward_on_card_matches_cpu(cuda):
         (out * torch.from_numpy(g).to(dev)).sum().backward()
         grads.append(p.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_device():
+    # tensors on cuda:1 while cuda:0 is current: each wrapper must launch
+    # on cuda:1, where the pointers live
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    idx, vals, R = binsum_case("runs")
+    sigma, dists, rgb, z = (torch.from_numpy(a).to(dev) for a in
+                            composite_inputs(B=64, K=32, seed=9, opaque=True))
+    with torch.cuda.device(0):
+        idx_t, vals_t = torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev)
+        torch.testing.assert_close(tbin.binsum_rows(idx_t, vals_t, R),
+                                   tbin.binsum_rows_plain(idx_t, vals_t, R),
+                                   rtol=1e-4, atol=1e-4)
+        s = sigma.clone().requires_grad_(True)
+        w = tcomp.transmittance_weights(s, dists)
+        w.sum().backward()
+        s_ref = sigma.clone().requires_grad_(True)
+        w_ref = tcomp.transmittance_weights_plain(s_ref, dists)
+        w_ref.sum().backward()
+        torch.cuda.synchronize(dev)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s.grad, s_ref.grad, rtol=1e-4, atol=1e-4)

@@ -97,7 +97,7 @@ def test_sampler_schedule_matches():
                                    "model.arch.sampler.update_list=[2]"])
     for it in range(1, 4):
         new, changed = jn.sampler.check_schedule(it, 1, jn.rf)
-        assert tn.sampler.check_schedule(it, 1, tn.rf) == changed
+        assert tn.sampler.check_schedule(it, tn.rf) == changed
         jn = jn.replace(sampler=new)
     np.testing.assert_array_equal(
         tn.sampler.alpha_mask.alpha_volume.numpy(),
