@@ -5,14 +5,19 @@
 
 1. Device: the card's name and power limit, torch's CUDA version.
 2. Build: compiles the CUDA kernels of nmf_tpu_torch/csrc with nvcc.
-3. Kernels: holds each kernel against its plain PyTorch version at the
-   train step's shapes (B = 4096 rays x K = 192 samples for composite;
-   N = 786,432 rows x C = 160 channels into R = 16,384 rows for binsum),
-   and times the kernel alone, its wrapper, the plain version and, for
-   binsum, the one-call yardstick ``index_add_`` (which the port never
-   calls). binsum is also held and timed at the other shapes of the train
-   step's launches: planes at 300^2 after the upsample, lines (C = 80) at
-   128 and 300 cells.
+3. Kernels: times an empty kernel's launch from the composite library
+   back to back (the launch floor). Holds each kernel against its plain
+   PyTorch version at the train step's shapes (B = 4096 rays x K = 192
+   samples for composite; N = 786,432 rows x C = 160 channels into
+   R = 16,384 rows for binsum), and times the kernel alone (and its
+   device time from the profiler, for composite), its wrapper, the plain
+   version and, for binsum, the one-call yardstick ``index_add_`` (which
+   the port never calls). composite is also held and timed in full mode
+   and at the flagship's passes (8192 x 192 forward only, 8192 x 96,
+   1024 x 96), and held at ragged shapes (K = 1, 33, 1024). binsum is
+   also held and timed at the other shapes of the train step's launches:
+   planes at 300^2 after the upsample, lines (C = 80) at 128 and 300
+   cells.
    Then runs one train step and one eval render of a tiny model=tensorf on
    the card and on the CPU (the plain versions) and compares the loss, the
    image and every gradient.
@@ -85,104 +90,211 @@ def max_err(torch, pairs, rtol, atol, what):
     return worst
 
 
+def device_ms(torch, fn, kernel, iters=100, tries=3):
+    """Mean device time of one launch of the kernels whose name holds
+    ``kernel``, over ``iters`` calls of fn, from the profiler's CUDA trace
+    (no host gaps between launches in it). A trace can come back without
+    the kernels: up to ``tries`` traces, then None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nmf_tpu_torch.scripts.profile_step import device_time_us
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for evt in prof.key_averages():
+            if evt.device_type.name == "CUDA" and kernel in evt.key:
+                total += device_time_us(evt)
+                count += evt.count
+        if count and total > 0:
+            return total / count / 1e3
+    return None
+
+
 def composite_inputs(torch, dev, B, K, gen):
     """Densities and spacings like the train step's (dists scaled by
-    distance_scale 25), a quarter of the rays opaque: sigma * dist up to
-    60, where the transmittance underflows."""
+    distance_scale 25). A quarter of the rays opaque: sigma * dist up to
+    60, where the transmittance underflows. A quarter thin: an optical
+    depth of ~4 over the whole ray, so T stays far above the tolerances to
+    the last sample and every tile carry shows."""
     sigma = torch.rand((B, K), generator=gen, device=dev) * 40
     dists = 0.05 + 0.3 * torch.rand((B, K), generator=gen, device=dev)
     sigma[: B // 4] *= 4
-    sigma[:, ::7] = 0  # empty samples
+    sigma[B // 2: 3 * B // 4] /= K
+    sigma[:, 3::7] = 0  # empty samples
     rgb = torch.rand((B, K, 3), generator=gen, device=dev)
     z = torch.cumsum(dists, dim=1) / 25 + 2.5
     return sigma, dists, rgb, z
 
 
-def check_composite(torch, dev, gen):
+def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
+    """K1 (and K2 if ``backward``) at one shape, in full mode (rgb, z and
+    all four cotangents) or weights-only, held against the plain version
+    and, if ``timed``, timed. Returns the K1 row and the K2 row (None
+    without ``backward``); appends (row, launch, kernel name) to
+    ``deferred`` for the device times."""
     from nmf_tpu_torch.ops.kernels import composite as C
     from nmf_tpu_torch.ops.kernels.build import ptr
 
-    B, K = 4096, 192
     sigma, dists, rgb, z = composite_inputs(torch, dev, B, K, gen)
-    g_w = torch.randn((B, K), generator=gen, device=dev)
-    # forward (composite_rays and the weights-only entry of the train step)
-    with torch.no_grad():
-        full = C.composite_rays(sigma, dists, rgb, z)
-        full_ref = C.composite_rays_plain(sigma, dists, rgb, z)
-        w = C.transmittance_weights(sigma, dists)
-        w_ref = C.transmittance_weights_plain(sigma, dists)
-    # T is a product of up to 192 factors, rounded in another order by the
-    # plain cumprod: 1e-5 relative plus 1e-6
-    fwd_err = max_err(torch, list(zip(full, full_ref)) + [(w, w_ref)],
-                      1e-5, 1e-6, "composite forward")
-
-    # backward: every input's gradient of both entries
-    def grads(fn, inputs, cots):
-        ts = [t.clone().requires_grad_(True) for t in inputs]
-        outs = fn(*ts)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        torch.autograd.backward(outs, cots)
-        return [t.grad for t in ts]
-
-    cots = (g_w, torch.randn((B, 3), generator=gen, device=dev),
+    inputs = (sigma, dists, rgb, z) if full else (sigma, dists)
+    fn, plain = ((C.composite_rays, C.composite_rays_plain) if full else
+                 (C.transmittance_weights, C.transmittance_weights_plain))
+    cots = (torch.randn((B, K), generator=gen, device=dev),
+            torch.randn((B, 3), generator=gen, device=dev),
             torch.randn((B,), generator=gen, device=dev),
-            torch.randn((B,), generator=gen, device=dev))
-    pairs = list(zip(grads(C.composite_rays, (sigma, dists, rgb, z), cots),
-                     grads(C.composite_rays_plain, (sigma, dists, rgb, z),
-                           cots)))
-    pairs += list(zip(grads(C.transmittance_weights, (sigma, dists), (g_w,)),
-                      grads(C.transmittance_weights_plain, (sigma, dists),
-                            (g_w,))))
-    # reverse scan without division against cumprod's autograd (which
-    # divides): 1e-4 relative plus 1e-5 on cotangents of unit scale
-    bwd_err = max_err(torch, pairs, 1e-4, 1e-5, "composite backward")
-    torch.cuda.synchronize()
+            torch.randn((B,), generator=gen, device=dev))[:4 if full else 1]
 
-    # timing, the train step's weights-only entry. The kernel: back-to-back
-    # launches of the C entry on preallocated buffers, so the events read
-    # device time (through autograd the host work is about as long as the
-    # kernel and varies with the host). The wrapper and the plain version:
-    # as the train step calls them.
+    def outputs(f, need=None):
+        """f's outputs, every input's leaf copy and the graph; ``need``
+        says which inputs take a gradient (all by default)."""
+        ts = [t.clone().requires_grad_(need is None or need[i])
+              for i, t in enumerate(inputs)]
+        outs = f(*ts)
+        return (outs if isinstance(outs, tuple) else (outs,)), ts
+
+    shape = f"B={B} K={K} {'full' if full else 'weights-only'}"
+    runs = [outputs(f) for f in (fn, plain)]
+    # T is a product of up to K factors, rounded in another order than the
+    # plain cumprod's: 1e-5 relative plus 1e-6
+    fwd = {"shape": shape, "max_abs_err": max_err(
+        torch, [(a.detach(), b.detach()) for a, b in
+                zip(runs[0][0], runs[1][0])],
+        1e-5, 1e-6, f"composite forward {shape}")}
+    bwd = None
+    if backward:
+        # every input's gradient; the reverse scan without division against
+        # cumprod's autograd: 1e-4 relative plus 1e-5 on unit cotangents
+        grads = [torch.autograd.grad(outs, ts, cots) for outs, ts in runs]
+        bwd = {"shape": shape, "max_abs_err": max_err(
+            torch, list(zip(*grads)), 1e-4, 1e-5,
+            f"composite backward {shape}")}
+    torch.cuda.synchronize()
+    if not timed:
+        return fwd, bwd
+
+    # The kernel: back-to-back launches of the C entry on preallocated
+    # buffers (CUDA events: the host's launch rate included), and its device
+    # time alone from the profiler. The wrapper and the plain version: as
+    # the render calls them (weights-only: sigma takes a gradient, the
+    # sampler's dists do not). Inputs of ~3-6 MB an array: L2-warm, as in
+    # the step. Bounds: each input read once, each output written once.
     stream = torch.cuda.current_stream(dev).cuda_stream
-    w_buf, d_buf = torch.empty_like(sigma), torch.empty_like(sigma)
-    fwd_ms = time_ms(torch, lambda: C.COMPOSITE_FWD(
-        ptr(sigma), ptr(dists), None, None, ptr(w_buf), None, None, None,
-        B, K, stream))
-    bwd_ms = time_ms(torch, lambda: C.COMPOSITE_BWD(
-        ptr(sigma), ptr(dists), None, None, ptr(g_w), None, None, None,
-        ptr(d_buf), None, None, None, B, K, stream))
-    with torch.no_grad():
-        fwd_wrap_ms = time_ms(
-            torch, lambda: C.transmittance_weights(sigma, dists))
-        fwd_plain_ms = time_ms(
-            torch, lambda: C.transmittance_weights_plain(sigma, dists))
-    s_k = sigma.clone().requires_grad_(True)
-    w_k = C.transmittance_weights(s_k, dists)
-    s_p = sigma.clone().requires_grad_(True)
-    w_p = C.transmittance_weights_plain(s_p, dists)
-    bwd_wrap_ms = time_ms(torch, lambda: torch.autograd.grad(
-        w_k, s_k, g_w, retain_graph=True))
-    bwd_plain_ms = time_ms(torch, lambda: torch.autograd.grad(
-        w_p, s_p, g_w, retain_graph=True))
     n = B * K
-    fb, fby = bound_ms(3 * 4 * n, 6 * n)   # read sigma, dists; write w
-    bb, bby = bound_ms(4 * 4 * n, 16 * n)  # + g_w; write d_sigma
+    opt = (rgb, z) if full else (None, None)
+    w_buf = torch.empty_like(sigma)
+    maps = ((sigma.new_empty((B, 3)), sigma.new_empty((B,)),
+             sigma.new_empty((B,))) if full else (None, None, None))
+
+    # the arguments made once, so a launch's host work is the ctypes call,
+    # as for the launch floor
+    fwd_args = (ptr(sigma), ptr(dists), *map(ptr, opt), ptr(w_buf),
+                *map(ptr, maps), B, K, stream)
+
+    def launch_fwd():
+        C.COMPOSITE_FWD(*fwd_args)
+
+    with torch.no_grad():
+        fwd |= {"ms": time_ms(torch, launch_fwd, iters=100),
+                "wrapper_ms": time_ms(torch, lambda: fn(*inputs)),
+                "plain_ms": time_ms(torch, lambda: plain(*inputs))}
+    # read sigma, dists (+ rgb, z); write w (+ rgb_map, acc, depth)
+    b, by = bound_ms(4 * n * (7 if full else 3) + (20 * B if full else 0),
+                     (16 if full else 6) * n)
+    fwd |= {"bound_ms": b, "bound_by": by, "library_ms": None}
+    deferred.append((fwd, launch_fwd, "composite_fwd_kernel"))
+    if not backward:
+        return fwd, bwd
+
+    d_sigma = torch.empty_like(sigma)
+    d_opt = ((torch.empty_like(dists), torch.empty_like(rgb),
+              torch.empty_like(z)) if full else (None, None, None))
+    g_opt = cots[1:] if full else (None, None, None)
+
+    bwd_args = (ptr(sigma), ptr(dists), *map(ptr, opt), ptr(cots[0]),
+                *map(ptr, g_opt), ptr(d_sigma), *map(ptr, d_opt), B, K,
+                stream)
+
+    def launch_bwd():
+        C.COMPOSITE_BWD(*bwd_args)
+
+    need = [True] * 4 if full else [True, False]
+    timed_runs = [outputs(f, need) for f in (fn, plain)]
+
+    def grad_of(outs, ts):
+        return lambda: torch.autograd.grad(
+            outs, [t for t in ts if t.requires_grad], cots,
+            retain_graph=True)
+
+    bwd |= {"ms": time_ms(torch, launch_bwd, iters=100),
+            "wrapper_ms": time_ms(torch, grad_of(*timed_runs[0])),
+            "plain_ms": time_ms(torch, grad_of(*timed_runs[1]))}
+    # read sigma, dists, g_w (+ rgb, z, g_rgb, g_acc, g_depth); write
+    # d_sigma (+ d_dists, d_rgb, d_z)
+    b, by = bound_ms(4 * n * (13 if full else 4) + (20 * B if full else 0),
+                     (30 if full else 16) * n)
+    bwd |= {"bound_ms": b, "bound_by": by, "library_ms": None}
+    deferred.append((bwd, launch_bwd, "composite_bwd_kernel"))
+    return fwd, bwd
+
+
+# (B, K, full, backward, timed): K1/K2 at every shape the port launches
+# them with now (the tensorf train step) and with the microfacet flagship
+# (ROADMAP A.1), whose three passes are weights-only: the proposal pass
+# (forward only), the primary pass after resampling and the retrace pass.
+# Then ragged shapes, checked in both modes and not timed.
+COMPOSITE_CASES = (
+    [(4096, 192, False, True, True), (4096, 192, True, True, True),
+     (8192, 192, False, False, True), (8192, 96, False, True, True),
+     (1024, 96, False, True, True)]
+    + [(B, K, full, True, False) for B, K in ((1000, 1), (1000, 33),
+                                               (257, 1024))
+       for full in (False, True)])
+
+
+def check_composite(torch, dev, gen, deferred):
+    """K1 and K2 at every case of COMPOSITE_CASES. Each kernel's line
+    reports the first (the train step's weights-only entry); every shape
+    is in ``shapes``."""
+    from nmf_tpu_torch.ops.kernels import composite as C
+
+    fwd_rows, bwd_rows = [], []
+    for case in COMPOSITE_CASES:
+        fwd, bwd = composite_case(torch, dev, gen, deferred, *case)
+        fwd_rows.append(fwd)
+        if bwd is not None:
+            bwd_rows.append(bwd)
     return [
         {"name": "composite_fwd", "route": "cuda",
          "source": "nmf_tpu_torch/csrc/composite.cu",
          "replaces": "nmf_tpu/ops/pallas/composite.py:28",
-         "kernel": C.COMPOSITE_FWD, "max_abs_err": fwd_err, "ms": fwd_ms,
-         "wrapper_ms": fwd_wrap_ms, "plain_ms": fwd_plain_ms,
-         "bound_ms": fb, "bound_by": fby, "library_ms": None,
-         "shape": f"B={B} K={K} weights-only"},
+         "kernel": C.COMPOSITE_FWD} | fwd_rows[0] | {"shapes": fwd_rows},
         {"name": "composite_bwd", "route": "cuda",
          "source": "nmf_tpu_torch/csrc/composite.cu",
          "replaces": "nmf_tpu/ops/pallas/composite.py:51",
-         "kernel": C.COMPOSITE_BWD, "max_abs_err": bwd_err, "ms": bwd_ms,
-         "wrapper_ms": bwd_wrap_ms, "plain_ms": bwd_plain_ms,
-         "bound_ms": bb, "bound_by": bby, "library_ms": None,
-         "shape": f"B={B} K={K} weights-only"},
+         "kernel": C.COMPOSITE_BWD} | bwd_rows[0] | {"shapes": bwd_rows},
     ]
+
+
+def launch_floor(torch, dev, deferred):
+    """Back-to-back time of an empty kernel's launch from the composite
+    library (CUDA events): the floor the composite kernels' times and
+    bounds are read against. Its device time is deferred."""
+    import ctypes
+
+    from nmf_tpu_torch.ops.kernels.build import CudaKernel
+
+    empty = CudaKernel("composite.cu", "composite_empty", [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    row = {"ms": time_ms(torch, lambda: empty(stream), iters=100)}
+    deferred.append((row, lambda: empty(stream), "empty_kernel"))
+    return row
 
 
 def plane_ids(torch, dev, gen, H, W, n_rays=4096, K=192):
@@ -351,14 +463,14 @@ def main():
                 print(f"  {source}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = check_composite(torch, dev, gen) + check_binsum(torch, dev, gen)
-    for k in kernels:
-        for row in k.get("shapes", [k]):
-            print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
-                  f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (wrapper "
-                  f"{row['wrapper_ms']:.4f}, plain "
-                  f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-                  f"{row['bound_by']}, library {row['library_ms']})")
+
+    # (row, launch, kernel name): device times from the profiler, read
+    # after the main path, so no profiler session runs before the training
+    # whose rays/s is read
+    deferred = []
+    floor = launch_floor(torch, dev, deferred)
+    kernels = (check_composite(torch, dev, gen, deferred)
+               + check_binsum(torch, dev, gen))
     print(f"small path, card vs CPU: max_abs_err {check_small_path(torch, dev):.3e}")
 
     # ---- main path: full-width model=tensorf training + test eval ----
@@ -386,6 +498,29 @@ def main():
         fail(f"test PSNR {res.get('psnr')} <= {PSNR_BAR} dB")
     print(f"tensorf 300 iters on {card}: train {res['rays_per_sec']:.0f} "
           f"rays/s, test PSNR {res['psnr']:.2f} dB, SSIM {res['ssim']:.4f}")
+
+    def ms_or_not(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+
+    for row, launch, kname in deferred:
+        row["device_ms"] = device_ms(torch, launch, kname)
+    for k in kernels:
+        k |= k["shapes"][0]  # a kernel's line gives its first shape
+    print(f"launch floor on {card}: an empty kernel of the composite "
+          f"library, back to back {floor['ms']:.4f} ms, device "
+          f"{ms_or_not(floor['device_ms'])}")
+    for k in kernels:
+        for row in k.get("shapes", [k]):
+            if "ms" not in row:
+                print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
+                      f"{row['max_abs_err']:.3e} (checked, not timed)")
+                continue
+            print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
+                  f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (device "
+                  f"{ms_or_not(row.get('device_ms'))}, wrapper "
+                  f"{row['wrapper_ms']:.4f}, plain "
+                  f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+                  f"{row['bound_by']}, library {row['library_ms']})")
 
     line = [{key: v for key, v in k.items() if key != "kernel"}
             | {"launches": launches[k["name"]]} for k in kernels]

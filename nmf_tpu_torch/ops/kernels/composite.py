@@ -73,7 +73,7 @@ class _Composite(torch.autograd.Function):
         if ctx.full:
             g_rgb, g_acc, g_depth = (g.contiguous() for g in grads[1:])
         need = ctx.needs_input_grad
-        d_sigma = torch.empty_like(sigma)  # also the kernel's T scratch
+        d_sigma = torch.empty_like(sigma)
         d_dist = torch.empty_like(dists) if need[1] else None
         d_rgb = torch.empty_like(rgb) if ctx.full and need[2] else None
         d_z = torch.empty_like(z_vals) if ctx.full and need[3] else None

@@ -23,38 +23,56 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("opaque", [False, True], ids=["moderate", "opaque"])
-def test_composite_kernel_matches_plain_on_card(cuda, opaque):
-    args = [torch.from_numpy(a).to(cuda) for a in
-            composite_inputs(B=300, K=192, seed=6, opaque=opaque)]
-    cots = [torch.from_numpy(c).to(cuda) for c in cotangents(300, 192)]
+# (B, K): one sample; a lane's chunk with a ragged tile (V = 2); the train
+# step's K; the flagship's primary and retrace K; a ray of six tiles
+COMPOSITE_SHAPES = [(1, 1), (300, 33), (64, 192), (1024, 96), (257, 1024)]
+
+
+def _composite_kernel_vs_plain(cuda, fns, B, K, opaque, n_inputs, n_cots):
+    """Outputs and every input's gradient of the kernel's entry and of its
+    plain version, on the same inputs and cotangents. Moderate rays keep a
+    mean optical depth of about 4 over the ray, so T stays far above the
+    tolerances to the last tile."""
+    arrays = composite_inputs(B=B, K=K, seed=6, opaque=opaque)[:n_inputs]
+    if not opaque:
+        arrays[1][:] *= min(1.0, 16 / K)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    cots = [torch.from_numpy(c).to(cuda) for c in cotangents(B, K)[:n_cots]]
     results = []
-    for fn in (tcomp.composite_rays, tcomp.composite_rays_plain):
+    for fn in fns:
         ts = [a.clone().requires_grad_(True) for a in args]
         outs = fn(*ts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
         sum((o * c).sum() for o, c in zip(outs, cots)).backward()
         results.append(([o.detach() for o in outs], [t.grad for t in ts]))
     torch.cuda.synchronize()
-    for a, b in zip(results[0][0], results[1][0]):
+    return results
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True], ids=["moderate", "opaque"])
+@pytest.mark.parametrize("shape", COMPOSITE_SHAPES, ids=str)
+def test_composite_kernel_matches_plain_on_card(cuda, shape, opaque):
+    # full mode: weights, rgb_map, acc, depth; d_sigma, d_dists, d_rgb, d_z
+    kern, plain = _composite_kernel_vs_plain(
+        cuda, (tcomp.composite_rays, tcomp.composite_rays_plain), *shape,
+        opaque, n_inputs=4, n_cots=4)
+    for a, b in zip(kern[0], plain[0]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    for a, b in zip(results[0][1], results[1][1]):
+    for a, b in zip(kern[1], plain[1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
-def test_transmittance_kernel_matches_plain_on_card(cuda):
-    sigma, dists = (torch.from_numpy(a).to(cuda) for a in
-                    composite_inputs(B=500, K=192, seed=7, opaque=True)[:2])
-    g = torch.randn(500, 192, device=cuda)
-    grads = []
-    for fn in (tcomp.transmittance_weights, tcomp.transmittance_weights_plain):
-        s = sigma.clone().requires_grad_(True)
-        d = dists.clone().requires_grad_(True)
-        w = fn(s, d)
-        (w * g).sum().backward()
-        grads.append((w.detach(), s.grad, d.grad))
-    for a, b in zip(*grads):
+@pytest.mark.parametrize("opaque", [False, True], ids=["moderate", "opaque"])
+@pytest.mark.parametrize("shape", COMPOSITE_SHAPES, ids=str)
+def test_transmittance_kernel_matches_plain_on_card(cuda, shape, opaque):
+    # weights-only entry (null rgb / z pointers): weights; d_sigma, d_dists
+    kern, plain = _composite_kernel_vs_plain(
+        cuda, (tcomp.transmittance_weights,
+               tcomp.transmittance_weights_plain), *shape, opaque,
+        n_inputs=2, n_cots=1)
+    for a, b in zip(kern[0] + kern[1], plain[0] + plain[1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 

@@ -112,6 +112,126 @@ def test_transmittance_weights_plain_matches_pallas(interpret_mode):
                                rtol=1e-4, atol=1e-5)
 
 
+def _warp_sum(x, V):
+    """Sum over K as the forward kernel takes it: each lane adds its samples
+    in coalesced order (tile by tile, sample j * 32 + lane of a tile), then a
+    butterfly over the 32 lanes."""
+    B, K = x.shape
+    n_tiles = -(-K // (32 * V))
+    lanes = np.pad(x, ((0, 0), (0, n_tiles * 32 * V - K))).reshape(
+        B, n_tiles * V, 32)
+    part = np.zeros((B, 32), np.float32)
+    for row in range(n_tiles * V):
+        part = part + lanes[:, row]
+    for m in (16, 8, 4, 2, 1):
+        part = part + part[:, np.arange(32) ^ m]
+    return part[:, 0]
+
+
+def _emulate_composite_kernels(sigma, dists, rgb, z, cots):
+    """float32 numpy mirror of the order of operations of K1/K2
+    (nmf_tpu_torch/csrc/composite.cu): lane chunks of V consecutive
+    samples, a Hillis-Steele product scan over the 32 lanes, the tile carry
+    of T, and the affine suffix scan for R, carried from the last tile back.
+    Returns the four outputs and the four input gradients."""
+    B, K = sigma.shape
+    V = min(-(-K // 32), 6)
+    n_tiles = -(-K // (32 * V))
+    lane = np.arange(32)
+
+    def lane_order(x):  # (B, K) -> (B, tile, lane, V); padding 0
+        return np.pad(x, ((0, 0), (0, n_tiles * 32 * V - K))).reshape(
+            B, n_tiles, 32, V)
+
+    g_w, g_rgb, g_acc, g_depth = cots
+    e = np.exp(-sigma * dists)
+    alpha = lane_order(np.float32(1) - e)
+    f = (np.float32(1) - alpha) + np.float32(1e-10)
+
+    # forward: lane products, inclusive scan over lanes, tile carry
+    prod = f[..., 0]
+    for j in range(1, V):
+        prod = prod * f[..., j]
+    x = prod.copy()
+    for d in (1, 2, 4, 8, 16):
+        x = np.where(lane >= d, np.roll(x, d, axis=-1) * x, x)
+    excl = np.where(lane == 0, np.float32(1), np.roll(x, 1, axis=-1))
+    T0 = np.ones((B, n_tiles), np.float32)
+    for t in range(1, n_tiles):
+        T0[:, t] = T0[:, t - 1] * x[:, t - 1, 31]
+    T = np.empty_like(f)
+    run = T0[..., None] * excl
+    for j in range(V):
+        T[..., j] = run
+        run = run * f[..., j]
+    weights = (alpha * T).reshape(B, -1)[:, :K]
+    outs = (weights,
+            np.stack([_warp_sum(weights * rgb[..., c], V) for c in range(3)],
+                     -1),
+            _warp_sum(weights, V), _warp_sum(weights * z, V))
+
+    # backward: each lane's map R -> a R + b, suffix scan over lanes
+    s = (g_acc[:, None] + g_w) + (g_rgb[:, None, 0] * rgb[..., 0]
+                                  + g_rgb[:, None, 1] * rgb[..., 1]
+                                  + g_rgb[:, None, 2] * rgb[..., 2])
+    s = lane_order(s + g_depth[:, None] * z)
+    ma, mb = prod, np.zeros_like(prod)
+    for j in reversed(range(V)):
+        mb = f[..., j] * mb + s[..., j] * alpha[..., j]
+    for d in (1, 2, 4, 8, 16):
+        na, nb = np.roll(ma, -d, axis=-1), np.roll(mb, -d, axis=-1)
+        ma, mb = (np.where(lane + d < 32, ma * na, ma),
+                  np.where(lane + d < 32, ma * nb + mb, mb))
+    ea, eb = np.roll(ma, -1, axis=-1), np.roll(mb, -1, axis=-1)
+    d_alpha = np.empty_like(f)
+    R = np.zeros((B, 1), np.float32)
+    for t in reversed(range(n_tiles)):
+        r = np.where(lane == 31, R, ea[:, t] * R + eb[:, t])
+        for j in reversed(range(V)):
+            d_alpha[:, t, :, j] = T[:, t, :, j] * (s[:, t, :, j] - r)
+            r = f[:, t, :, j] * r + s[:, t, :, j] * alpha[:, t, :, j]
+        R = r[:, :1]
+    d_alpha = d_alpha.reshape(B, -1)[:, :K]
+    grads = (d_alpha * dists * e, d_alpha * sigma * e,
+             weights[..., None] * g_rgb[:, None, :],
+             weights * g_depth[:, None])
+    return outs, grads
+
+
+@pytest.mark.parametrize("K", [1, 33, 192, 300])
+@pytest.mark.parametrize("opaque", [False, True], ids=["moderate", "opaque"])
+def test_kernel_scan_order_matches_jax(K, opaque, interpret_mode):
+    # the CUDA kernels reassociate T's product and R's sum (lane chunks,
+    # warp scans, tile carries); emulated in f32 they stay inside the
+    # tolerances chip_smoke.py holds the kernels to: forward 1e-5 relative
+    # plus 1e-6, gradients 1e-4 relative plus 1e-5. K = 1, 33, 192 and 300
+    # take V = 1, 2, 6 and 6 samples a lane, 300 in two tiles. Moderate rays
+    # keep a mean optical depth of about 4 over the ray, so T stays far
+    # above the tolerances to the last tile and the carry shows.
+    args = composite_inputs(B=24, K=K, seed=20 + K, opaque=opaque)
+    if not opaque:
+        args[1][:] *= min(1.0, 16 / K)
+    cots = cotangents(24, K, seed=21)
+    outs, grads = _emulate_composite_kernels(*args, cots)
+    for a in outs + grads:
+        assert a.dtype == np.float32
+    jcots = tuple(map(jnp.asarray, cots))
+    for fn in (jcomp.composite_rays_reference, jcomp.composite_rays):
+        ref, pull = jax.vjp(fn, *map(jnp.asarray, args))
+        for a, b in zip(outs, ref):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5,
+                                       atol=1e-6)
+        ref_grads = pull(jcots)
+        # the Pallas VJP returns d_sigma and d_rgb only, and rebuilds T by
+        # division, which loses it on opaque rays: the XLA form's autodiff
+        # holds every gradient there
+        check = ((0, 1, 2, 3) if fn is jcomp.composite_rays_reference
+                 else () if opaque else (0, 2))
+        for i in check:
+            np.testing.assert_allclose(grads[i], np.asarray(ref_grads[i]),
+                                       rtol=1e-4, atol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     # a CPU tensor never reaches a kernel: the launch counts stay put
     before = (tcomp.COMPOSITE_FWD.launches, tcomp.COMPOSITE_BWD.launches,
