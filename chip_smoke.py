@@ -9,12 +9,15 @@
    back to back (the launch floor). Holds each kernel against its plain
    PyTorch version at the train step's shapes (B = 4096 rays x K = 192
    samples for composite; N = 786,432 rows x C = 160 channels into
-   R = 16,384 rows for binsum), and times the kernel alone (and its
-   device time from the profiler, for composite), its wrapper, the plain
-   version and, for binsum, the one-call yardstick ``index_add_`` (which
-   the port never calls). composite is also held and timed in full mode
-   and at the flagship's passes (8192 x 192 forward only, 8192 x 96,
-   1024 x 96), and held at ragged shapes (K = 1, 33, 1024). binsum is
+   R = 16,384 rows for binsum), and times the kernel alone, its wrapper,
+   the plain version and, for binsum, the one-call yardstick
+   ``index_add_`` (which the port never calls). composite's kernels are
+   timed alone L2-warm (the same buffers again and again) and L2-cold
+   (rotating over copies of them that fill the L2 four times), each back
+   to back and as device time from the profiler. composite is also held
+   and timed in full mode and at the flagship's passes (8192 x 192
+   forward only, 8192 x 96, 1024 x 96), and held at ragged shapes (K = 1,
+   33, 1024). binsum is
    also held and timed at the other shapes of the train step's launches:
    planes at 300^2 after the upsample, lines (C = 80) at 128 and 300
    cells.
@@ -31,6 +34,7 @@ Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
+import itertools
 import json
 import math
 import shutil
@@ -43,6 +47,7 @@ ROOT = Path(__file__).resolve().parent
 LOG_DIR = ROOT / "log" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+L2_BYTES = 50 * 2**20       # H100 SXM L2
 PSNR_BAR = 17.0
 
 
@@ -117,6 +122,34 @@ def device_ms(torch, fn, kernel, iters=100, tries=3):
     return None
 
 
+class Launcher:
+    """Launches a C entry on each of its buffer sets in turn, with the
+    arguments made once, so a launch's host work is the ctypes call, as for
+    the launch floor. It holds the sets: their memory stays theirs for as
+    long as the launcher lives, whatever runs in between."""
+
+    def __init__(self, entry, sets, tail):
+        from nmf_tpu_torch.ops.kernels.build import ptr
+
+        self.entry, self.sets = entry, sets
+        self.args = itertools.cycle([(*map(ptr, s), *tail) for s in sets])
+
+    def __call__(self):
+        self.entry(*next(self.args))
+
+
+def launchers(entry, buffers, tail):
+    """(warm, cold) launchers of ``entry``: warm on ``buffers`` every time,
+    so they stay in the L2; cold rotating over copies of them that together
+    fill the L2 four times, so a launch finds its buffers in device memory,
+    as the HBM bound assumes."""
+    n_bytes = sum(t.nbytes for t in buffers if t is not None)
+    copies = [tuple(None if t is None else t.clone() for t in buffers)
+              for _ in range(max(2, math.ceil(4 * L2_BYTES / n_bytes)))]
+    return (Launcher(entry, [buffers], tail),
+            Launcher(entry, copies, tail))
+
+
 def composite_inputs(torch, dev, B, K, gen):
     """Densities and spacings like the train step's (dists scaled by
     distance_scale 25). A quarter of the rays opaque: sigma * dist up to
@@ -137,10 +170,9 @@ def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
     """K1 (and K2 if ``backward``) at one shape, in full mode (rgb, z and
     all four cotangents) or weights-only, held against the plain version
     and, if ``timed``, timed. Returns the K1 row and the K2 row (None
-    without ``backward``); appends (row, launch, kernel name) to
-    ``deferred`` for the device times."""
+    without ``backward``); appends (row, warm launcher, cold launcher,
+    kernel name) to ``deferred`` for the device times."""
     from nmf_tpu_torch.ops.kernels import composite as C
-    from nmf_tpu_torch.ops.kernels.build import ptr
 
     sigma, dists, rgb, z = composite_inputs(torch, dev, B, K, gen)
     inputs = (sigma, dists, rgb, z) if full else (sigma, dists)
@@ -180,49 +212,38 @@ def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
         return fwd, bwd
 
     # The kernel: back-to-back launches of the C entry on preallocated
-    # buffers (CUDA events: the host's launch rate included), and its device
-    # time alone from the profiler. The wrapper and the plain version: as
-    # the render calls them (weights-only: sigma takes a gradient, the
-    # sampler's dists do not). Inputs of ~3-6 MB an array: L2-warm, as in
-    # the step. Bounds: each input read once, each output written once.
+    # buffers (CUDA events: the host's launch rate included), L2-warm and
+    # L2-cold, and its device time alone from the profiler. The wrapper and
+    # the plain version: as the render calls them (weights-only: sigma
+    # takes a gradient, the sampler's dists do not), L2-warm. Bounds: each
+    # input read once, each output written once.
     stream = torch.cuda.current_stream(dev).cuda_stream
     n = B * K
     opt = (rgb, z) if full else (None, None)
-    w_buf = torch.empty_like(sigma)
     maps = ((sigma.new_empty((B, 3)), sigma.new_empty((B,)),
              sigma.new_empty((B,))) if full else (None, None, None))
-
-    # the arguments made once, so a launch's host work is the ctypes call,
-    # as for the launch floor
-    fwd_args = (ptr(sigma), ptr(dists), *map(ptr, opt), ptr(w_buf),
-                *map(ptr, maps), B, K, stream)
-
-    def launch_fwd():
-        C.COMPOSITE_FWD(*fwd_args)
+    warm, cold = launchers(C.COMPOSITE_FWD, (
+        sigma, dists, *opt, torch.empty_like(sigma), *maps), (B, K, stream))
 
     with torch.no_grad():
-        fwd |= {"ms": time_ms(torch, launch_fwd, iters=100),
+        fwd |= {"ms": time_ms(torch, warm, iters=100),
+                "cold_ms": time_ms(torch, cold, iters=100),
                 "wrapper_ms": time_ms(torch, lambda: fn(*inputs)),
                 "plain_ms": time_ms(torch, lambda: plain(*inputs))}
     # read sigma, dists (+ rgb, z); write w (+ rgb_map, acc, depth)
     b, by = bound_ms(4 * n * (7 if full else 3) + (20 * B if full else 0),
                      (16 if full else 6) * n)
     fwd |= {"bound_ms": b, "bound_by": by, "library_ms": None}
-    deferred.append((fwd, launch_fwd, "composite_fwd_kernel"))
+    deferred.append((fwd, warm, cold, "composite_fwd_kernel"))
     if not backward:
         return fwd, bwd
 
-    d_sigma = torch.empty_like(sigma)
     d_opt = ((torch.empty_like(dists), torch.empty_like(rgb),
               torch.empty_like(z)) if full else (None, None, None))
     g_opt = cots[1:] if full else (None, None, None)
-
-    bwd_args = (ptr(sigma), ptr(dists), *map(ptr, opt), ptr(cots[0]),
-                *map(ptr, g_opt), ptr(d_sigma), *map(ptr, d_opt), B, K,
-                stream)
-
-    def launch_bwd():
-        C.COMPOSITE_BWD(*bwd_args)
+    warm, cold = launchers(C.COMPOSITE_BWD, (
+        sigma, dists, *opt, cots[0], *g_opt, torch.empty_like(sigma),
+        *d_opt), (B, K, stream))
 
     need = [True] * 4 if full else [True, False]
     timed_runs = [outputs(f, need) for f in (fn, plain)]
@@ -232,7 +253,8 @@ def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
             outs, [t for t in ts if t.requires_grad], cots,
             retain_graph=True)
 
-    bwd |= {"ms": time_ms(torch, launch_bwd, iters=100),
+    bwd |= {"ms": time_ms(torch, warm, iters=100),
+            "cold_ms": time_ms(torch, cold, iters=100),
             "wrapper_ms": time_ms(torch, grad_of(*timed_runs[0])),
             "plain_ms": time_ms(torch, grad_of(*timed_runs[1]))}
     # read sigma, dists, g_w (+ rgb, z, g_rgb, g_acc, g_depth); write
@@ -240,7 +262,7 @@ def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
     b, by = bound_ms(4 * n * (13 if full else 4) + (20 * B if full else 0),
                      (30 if full else 16) * n)
     bwd |= {"bound_ms": b, "bound_by": by, "library_ms": None}
-    deferred.append((bwd, launch_bwd, "composite_bwd_kernel"))
+    deferred.append((bwd, warm, cold, "composite_bwd_kernel"))
     return fwd, bwd
 
 
@@ -293,7 +315,7 @@ def launch_floor(torch, dev, deferred):
     empty = CudaKernel("composite.cu", "composite_empty", [ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     row = {"ms": time_ms(torch, lambda: empty(stream), iters=100)}
-    deferred.append((row, lambda: empty(stream), "empty_kernel"))
+    deferred.append((row, lambda: empty(stream), None, "empty_kernel"))
     return row
 
 
@@ -464,9 +486,10 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # (row, launch, kernel name): device times from the profiler, read
-    # after the main path, so no profiler session runs before the training
-    # whose rays/s is read
+    # (row, warm launch, cold launch or None, kernel name): device times
+    # from the profiler, read after the main path, so no profiler session
+    # runs before the training whose rays/s is read. The launchers hold
+    # their buffers until then.
     deferred = []
     floor = launch_floor(torch, dev, deferred)
     kernels = (check_composite(torch, dev, gen, deferred)
@@ -502,8 +525,10 @@ def main():
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
 
-    for row, launch, kname in deferred:
-        row["device_ms"] = device_ms(torch, launch, kname)
+    for row, warm, cold, kname in deferred:
+        row["device_ms"] = device_ms(torch, warm, kname)
+        if cold is not None:
+            row["device_cold_ms"] = device_ms(torch, cold, kname)
     for k in kernels:
         k |= k["shapes"][0]  # a kernel's line gives its first shape
     print(f"launch floor on {card}: an empty kernel of the composite "
@@ -515,12 +540,15 @@ def main():
                 print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
                       f"{row['max_abs_err']:.3e} (checked, not timed)")
                 continue
+            cold_txt = ("" if "cold_ms" not in row else
+                        f", L2-cold {row['cold_ms']:.4f} ms (device "
+                        f"{ms_or_not(row.get('device_cold_ms'))})")
             print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (device "
-                  f"{ms_or_not(row.get('device_ms'))}, wrapper "
+                  f"{ms_or_not(row.get('device_ms'))}){cold_txt}, wrapper "
                   f"{row['wrapper_ms']:.4f}, plain "
                   f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-                  f"{row['bound_by']}, library {row['library_ms']})")
+                  f"{row['bound_by']}, library {row['library_ms']}")
 
     line = [{key: v for key, v in k.items() if key != "kernel"}
             | {"launches": launches[k["name"]]} for k in kernels]

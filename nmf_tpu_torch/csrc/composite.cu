@@ -21,18 +21,19 @@
 //
 // Design: one warp per ray, kWarps rays per block (B = 4096 gives 4096
 // warps, ~31 an SM; the retrace pass's B = 1024 ~8). The warp walks its ray
-// in tiles of 32 * V samples, V = min(ceil(K / 32), 6) consecutive samples
-// per lane. Loads and stores are coalesced: sample j * 32 + lane of the
-// tile ("coalesced" order) is read and written by one instruction across
-// the warp, and a per-warp shared-memory transpose (skewed by one word
-// every 32, so free of bank conflicts) moves values to the lane that owns
-// sample lane * V + j ("lane" order) for the scans. Samples past K are
-// masked (alpha 0, f 1), so any K works.
+// in tiles of kTile = 192 samples, kV = 6 consecutive samples per lane.
+// Loads and stores are coalesced: sample j * 32 + lane of the tile
+// ("coalesced" order) is read and written by one instruction across the
+// warp, and a per-warp shared-memory transpose (skewed by one word every
+// 32, so free of bank conflicts) moves values to the lane that owns sample
+// lane * kV + j ("lane" order) for the scans. Samples past K are masked
+// (alpha 0, f 1), so any K works; a ray shorter than a tile (the flagship's
+// K = 96) leaves the upper lanes' samples masked.
 //
-// Forward: each lane multiplies its V factors f_k in order; a warp
+// Forward: each lane multiplies its kV factors f_k in order; a warp
 // exclusive product scan (Hillis-Steele, 5 __shfl_up_sync steps) gives the
 // T at the lane's first sample, times the tile's starting T; a sequential
-// pass over the lane's V samples gives each T_k and w_k. The tile's product
+// pass over the lane's kV samples gives each T_k and w_k. The tile's product
 // carries T to the next tile. Only the order of the products differs from
 // the plain cumprod: the factors stay as raw2alpha rounds them, in linear
 // space (a log-space sum would round otherwise and lose opaque rays).
@@ -44,7 +45,7 @@
 // divides by nothing: the Pallas backward rebuilds T_k by dividing T_{k+1}
 // by f_k, which loses T on opaque rays once it underflows. T_k is
 // recomputed with the forward's scan. The R recurrence composes affine maps
-// R -> a R + b, so each lane folds its V samples into one map (a = the
+// R -> a R + b, so each lane folds its kV samples into one map (a = the
 // lane's product of f, b from its samples), a warp suffix scan of the maps
 // (5 __shfl_down_sync steps) gives the R entering each lane from the right,
 // and R carries from the last tile back to the first. A ray of one tile
@@ -53,71 +54,67 @@
 // shared memory. No division anywhere, f32 throughout.
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 namespace {
 
-constexpr int kWarps = 4;   // rays per block
-constexpr int kMaxV = 6;    // samples per lane per tile
+constexpr int kWarps = 4;  // rays per block
+constexpr int kV = 6;      // samples per lane per tile
+constexpr int kTile = 32 * kV;
+constexpr int kBufferWords = kTile + kV;  // a tile and its skew
 constexpr unsigned kFull = 0xffffffffu;
 
 // Word of sample p of a tile in the per-warp transpose buffer: one word of
 // skew every 32 keeps both orders free of bank conflicts.
 __device__ __forceinline__ int skew(int p) { return p + (p >> 5); }
 
-template <int V>
-__host__ __device__ constexpr int buffer_words() { return 32 * V + V; }
-
-// coalesced order (sample j * 32 + lane) -> lane order (sample lane * V + j)
-template <int V>
-__device__ __forceinline__ void to_lane_order(float* buf, const float (&c)[V],
-                                              float (&l)[V], int lane) {
+// coalesced order (sample j * 32 + lane) -> lane order (sample lane * kV + j)
+__device__ __forceinline__ void to_lane_order(float* buf,
+                                              const float (&c)[kV],
+                                              float (&l)[kV], int lane) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) buf[skew(j * 32 + lane)] = c[j];
+  for (int j = 0; j < kV; ++j) buf[skew(j * 32 + lane)] = c[j];
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < V; ++j) l[j] = buf[skew(lane * V + j)];
+  for (int j = 0; j < kV; ++j) l[j] = buf[skew(lane * kV + j)];
   __syncwarp();
 }
 
 // lane order -> coalesced order
-template <int V>
-__device__ __forceinline__ void to_coalesced(float* buf, const float (&l)[V],
-                                             float (&c)[V], int lane) {
+__device__ __forceinline__ void to_coalesced(float* buf,
+                                             const float (&l)[kV],
+                                             float (&c)[kV], int lane) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) buf[skew(lane * V + j)] = l[j];
+  for (int j = 0; j < kV; ++j) buf[skew(lane * kV + j)] = l[j];
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < V; ++j) c[j] = buf[skew(j * 32 + lane)];
+  for (int j = 0; j < kV; ++j) c[j] = buf[skew(j * 32 + lane)];
   __syncwarp();
 }
 
 // alpha of the tile's samples in coalesced order (0 past K), and
 // e = exp(-sigma * dist) (1 past K).
-template <int V>
 __device__ __forceinline__ void load_alpha(const float* sigma,
                                            const float* dist, long long row,
                                            int k0, int K, int lane,
-                                           float (&alpha)[V], float (&e)[V]) {
+                                           float (&alpha)[kV],
+                                           float (&e)[kV]) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
+  for (int j = 0; j < kV; ++j) {
     const int k = k0 + j * 32 + lane;
     e[j] = k < K ? expf(-sigma[row + k] * dist[row + k]) : 1.f;
     alpha[j] = 1.f - e[j];
   }
 }
 
-// Transmittance of the lane's V samples (lane order) from the tile's
+// Transmittance of the lane's kV samples (lane order) from the tile's
 // starting T0. f are the lane's factors; returns the lane's product of f in
 // `lane_prod` and the tile's product.
-template <int V>
-__device__ __forceinline__ float scan_transmittance(const float (&f)[V],
-                                                    float T0, float (&T)[V],
+__device__ __forceinline__ float scan_transmittance(const float (&f)[kV],
+                                                    float T0, float (&T)[kV],
                                                     float& lane_prod,
                                                     int lane) {
   float p = f[0];
 #pragma unroll
-  for (int j = 1; j < V; ++j) p = p * f[j];
+  for (int j = 1; j < kV; ++j) p = p * f[j];
   lane_prod = p;
   float x = p;  // inclusive product over lanes 0..lane
 #pragma unroll
@@ -128,39 +125,39 @@ __device__ __forceinline__ float scan_transmittance(const float (&f)[V],
   float t = __shfl_up_sync(kFull, x, 1);
   t = T0 * (lane == 0 ? 1.f : t);
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
+  for (int j = 0; j < kV; ++j) {
     T[j] = t;
     t = t * f[j];
   }
   return __shfl_sync(kFull, x, 31);
 }
 
-template <int V>
 __global__ void __launch_bounds__(kWarps * 32) composite_fwd_kernel(
     const float* __restrict__ sigma, const float* __restrict__ dist,
     const float* __restrict__ rgb, const float* __restrict__ z,
     float* __restrict__ weights, float* __restrict__ rgb_map,
     float* __restrict__ acc, float* __restrict__ depth, int B, int K) {
-  __shared__ float smem[kWarps * buffer_words<V>()];
+  __shared__ float smem[kWarps * kBufferWords];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + warp;
   if (b >= B) return;  // the whole warp: one ray per warp
-  float* buf = smem + warp * buffer_words<V>();
+  float* buf = smem + warp * kBufferWords;
   const long long row = static_cast<long long>(b) * K;
 
   float T0 = 1.f, r = 0.f, g = 0.f, bl = 0.f, a = 0.f, d = 0.f;
-  for (int k0 = 0; k0 < K; k0 += 32 * V) {
-    float alpha_c[V], e[V], alpha[V], f[V], T[V], w[V], w_c[V], lane_prod;
-    load_alpha<V>(sigma, dist, row, k0, K, lane, alpha_c, e);
-    to_lane_order<V>(buf, alpha_c, alpha, lane);
+  for (int k0 = 0; k0 < K; k0 += kTile) {
+    float alpha_c[kV], e[kV], alpha[kV], f[kV], T[kV], w[kV], w_c[kV];
+    float lane_prod;
+    load_alpha(sigma, dist, row, k0, K, lane, alpha_c, e);
+    to_lane_order(buf, alpha_c, alpha, lane);
 #pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = (1.f - alpha[j]) + 1e-10f;
-    const float tile_prod = scan_transmittance<V>(f, T0, T, lane_prod, lane);
+    for (int j = 0; j < kV; ++j) f[j] = (1.f - alpha[j]) + 1e-10f;
+    const float tile_prod = scan_transmittance(f, T0, T, lane_prod, lane);
 #pragma unroll
-    for (int j = 0; j < V; ++j) w[j] = alpha[j] * T[j];
-    to_coalesced<V>(buf, w, w_c, lane);
+    for (int j = 0; j < kV; ++j) w[j] = alpha[j] * T[j];
+    to_coalesced(buf, w, w_c, lane);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
+    for (int j = 0; j < kV; ++j) {
       const int k = k0 + j * 32 + lane;
       if (k >= K) continue;
       const long long i = row + k;
@@ -196,7 +193,6 @@ __global__ void __launch_bounds__(kWarps * 32) composite_fwd_kernel(
 
 // Dynamic shared memory per warp: the transpose buffer, then the starting
 // T of each of the ray's n_tiles tiles.
-template <int V>
 __global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
     const float* __restrict__ sigma, const float* __restrict__ dist,
     const float* __restrict__ rgb, const float* __restrict__ z,
@@ -209,20 +205,20 @@ __global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + warp;
   if (b >= B) return;
-  float* buf = smem + warp * (buffer_words<V>() + n_tiles);
-  float* tile_T = buf + buffer_words<V>();
+  float* buf = smem + warp * (kBufferWords + n_tiles);
+  float* tile_T = buf + kBufferWords;
   const long long row = static_cast<long long>(b) * K;
 
   // rays longer than one tile: the forward scan, keeping each tile's T0
   float T0 = 1.f;
   if (lane == 0) tile_T[0] = 1.f;
   for (int t = 0; t + 1 < n_tiles; ++t) {
-    float alpha_c[V], e[V], alpha[V], f[V], T[V], lane_prod;
-    load_alpha<V>(sigma, dist, row, t * 32 * V, K, lane, alpha_c, e);
-    to_lane_order<V>(buf, alpha_c, alpha, lane);
+    float alpha_c[kV], e[kV], alpha[kV], f[kV], T[kV], lane_prod;
+    load_alpha(sigma, dist, row, t * kTile, K, lane, alpha_c, e);
+    to_lane_order(buf, alpha_c, alpha, lane);
 #pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = (1.f - alpha[j]) + 1e-10f;
-    T0 = T0 * scan_transmittance<V>(f, T0, T, lane_prod, lane);
+    for (int j = 0; j < kV; ++j) f[j] = (1.f - alpha[j]) + 1e-10f;
+    T0 = T0 * scan_transmittance(f, T0, T, lane_prod, lane);
     if (lane == 0) tile_T[t + 1] = T0;
   }
   __syncwarp();
@@ -235,11 +231,12 @@ __global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
 
   float R = 0.f;  // R at the last sample of the tile (0 past the ray)
   for (int t = n_tiles - 1; t >= 0; --t) {
-    const int k0 = t * 32 * V;
-    float alpha_c[V], e[V], s_c[V], alpha[V], s[V], f[V], T[V], lane_prod;
-    load_alpha<V>(sigma, dist, row, k0, K, lane, alpha_c, e);
+    const int k0 = t * kTile;
+    float alpha_c[kV], e[kV], s_c[kV], alpha[kV], s[kV], f[kV], T[kV];
+    float lane_prod;
+    load_alpha(sigma, dist, row, k0, K, lane, alpha_c, e);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
+    for (int j = 0; j < kV; ++j) {
       const int k = k0 + j * 32 + lane;
       s_c[j] = 0.f;
       if (k >= K) continue;
@@ -251,16 +248,16 @@ __global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
       if (z != nullptr) sk += gd * z[i];
       s_c[j] = sk;
     }
-    to_lane_order<V>(buf, alpha_c, alpha, lane);
-    to_lane_order<V>(buf, s_c, s, lane);
+    to_lane_order(buf, alpha_c, alpha, lane);
+    to_lane_order(buf, s_c, s, lane);
 #pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = (1.f - alpha[j]) + 1e-10f;
-    scan_transmittance<V>(f, tile_T[t], T, lane_prod, lane);
+    for (int j = 0; j < kV; ++j) f[j] = (1.f - alpha[j]) + 1e-10f;
+    scan_transmittance(f, tile_T[t], T, lane_prod, lane);
 
     // the lane's map R -> a R + b over its samples, last to first
     float ma = lane_prod, mb = 0.f;
 #pragma unroll
-    for (int j = V - 1; j >= 0; --j) mb = f[j] * mb + s[j] * alpha[j];
+    for (int j = kV - 1; j >= 0; --j) mb = f[j] * mb + s[j] * alpha[j];
     // suffix scan: the lane's map after the maps of lanes lane+1..31
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
@@ -274,17 +271,17 @@ __global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
     const float ea = __shfl_down_sync(kFull, ma, 1);
     const float eb = __shfl_down_sync(kFull, mb, 1);
     float Rk = lane == 31 ? R : ea * R + eb;  // R at the lane's last sample
-    float d_alpha[V], d_alpha_c[V];
+    float d_alpha[kV], d_alpha_c[kV];
 #pragma unroll
-    for (int j = V - 1; j >= 0; --j) {
+    for (int j = kV - 1; j >= 0; --j) {
       d_alpha[j] = T[j] * (s[j] - Rk);
       Rk = f[j] * Rk + s[j] * alpha[j];
     }
     R = __shfl_sync(kFull, Rk, 0);
 
-    to_coalesced<V>(buf, d_alpha, d_alpha_c, lane);
+    to_coalesced(buf, d_alpha, d_alpha_c, lane);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
+    for (int j = 0; j < kV; ++j) {
       const int k = k0 + j * 32 + lane;
       if (k >= K) continue;
       const long long i = row + k;
@@ -292,12 +289,12 @@ __global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
       if (d_dist != nullptr) d_dist[i] = d_alpha_c[j] * sigma[i] * e[j];
     }
     if (d_rgb == nullptr && d_z == nullptr) continue;
-    float w[V], w_c[V];
+    float w[kV], w_c[kV];
 #pragma unroll
-    for (int j = 0; j < V; ++j) w[j] = alpha[j] * T[j];
-    to_coalesced<V>(buf, w, w_c, lane);
+    for (int j = 0; j < kV; ++j) w[j] = alpha[j] * T[j];
+    to_coalesced(buf, w, w_c, lane);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
+    for (int j = 0; j < kV; ++j) {
       const int k = k0 + j * 32 + lane;
       if (k >= K) continue;
       const long long i = row + k;
@@ -313,20 +310,6 @@ __global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
 
 __global__ void empty_kernel() {}
 
-// Calls fn(std::integral_constant<int, V>) with V = min(ceil(K / 32), 6).
-template <typename Fn>
-int with_samples_per_lane(int K, Fn&& fn) {
-  const int v = (K + 31) / 32;
-  switch (v < kMaxV ? v : kMaxV) {
-    case 1: return fn(std::integral_constant<int, 1>{});
-    case 2: return fn(std::integral_constant<int, 2>{});
-    case 3: return fn(std::integral_constant<int, 3>{});
-    case 4: return fn(std::integral_constant<int, 4>{});
-    case 5: return fn(std::integral_constant<int, 5>{});
-    default: return fn(std::integral_constant<int, 6>{});
-  }
-}
-
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Every pointer is device memory
@@ -338,12 +321,9 @@ extern "C" int composite_fwd(const float* sigma, const float* dist,
                              int K, cudaStream_t stream) {
   if (B <= 0 || K <= 0) return 0;
   const int blocks = (B + kWarps - 1) / kWarps;
-  return with_samples_per_lane(K, [&](auto v) {
-    composite_fwd_kernel<decltype(v)::value><<<blocks, kWarps * 32, 0,
-                                               stream>>>(
-        sigma, dist, rgb, z, weights, rgb_map, acc, depth, B, K);
-    return static_cast<int>(cudaGetLastError());
-  });
+  composite_fwd_kernel<<<blocks, kWarps * 32, 0, stream>>>(
+      sigma, dist, rgb, z, weights, rgb_map, acc, depth, B, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int composite_bwd(const float* sigma, const float* dist,
@@ -354,17 +334,14 @@ extern "C" int composite_bwd(const float* sigma, const float* dist,
                              float* d_z, int B, int K, cudaStream_t stream) {
   if (B <= 0 || K <= 0) return 0;
   const int blocks = (B + kWarps - 1) / kWarps;
-  return with_samples_per_lane(K, [&](auto v) {
-    constexpr int V = decltype(v)::value;
-    const int n_tiles = (K + 32 * V - 1) / (32 * V);
-    // within the default 48 KB for rays of up to ~550,000 samples; past
-    // that the launch fails and its error is returned
-    const size_t smem = sizeof(float) * kWarps * (buffer_words<V>() + n_tiles);
-    composite_bwd_kernel<V><<<blocks, kWarps * 32, smem, stream>>>(
-        sigma, dist, rgb, z, g_w, g_rgb, g_acc, g_depth, d_sigma, d_dist,
-        d_rgb, d_z, B, K, n_tiles);
-    return static_cast<int>(cudaGetLastError());
-  });
+  const int n_tiles = (K + kTile - 1) / kTile;
+  // within the default 48 KB for rays of up to ~550,000 samples; past that
+  // the launch fails and its error is returned
+  const size_t smem = sizeof(float) * kWarps * (kBufferWords + n_tiles);
+  composite_bwd_kernel<<<blocks, kWarps * 32, smem, stream>>>(
+      sigma, dist, rgb, z, g_w, g_rgb, g_acc, g_depth, d_sigma, d_dist, d_rgb,
+      d_z, B, K, n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // An empty kernel's launch: timed back to back, it gives the launch floor

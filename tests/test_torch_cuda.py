@@ -23,18 +23,23 @@ def cuda():
     return torch.device("cuda")
 
 
-# (B, K): one sample; a lane's chunk with a ragged tile (V = 2); the train
-# step's K; the flagship's primary and retrace K; a ray of six tiles
-COMPOSITE_SHAPES = [(1, 1), (300, 33), (64, 192), (1024, 96), (257, 1024)]
+# (B, K): one sample; a ragged tile; the train step's K (at two batch
+# sizes); the flagship's primary and retrace K; a ray of six tiles
+COMPOSITE_SHAPES = [(1, 1), (300, 33), (64, 192), (300, 192), (1024, 96),
+                    (257, 1024)]
+# moderate rays keep a mean optical depth of about 4 over the ray, so T
+# stays far above the tolerances to the last tile; decaying rays (the same
+# densities, unscaled) take T to near 0 partway along the ray without being
+# opaque; opaque rays underflow it within a few samples
+RAYS = ["moderate", "decaying", "opaque"]
 
 
-def _composite_kernel_vs_plain(cuda, fns, B, K, opaque, n_inputs, n_cots):
+def _composite_kernel_vs_plain(cuda, fns, B, K, rays, n_inputs, n_cots):
     """Outputs and every input's gradient of the kernel's entry and of its
-    plain version, on the same inputs and cotangents. Moderate rays keep a
-    mean optical depth of about 4 over the ray, so T stays far above the
-    tolerances to the last tile."""
-    arrays = composite_inputs(B=B, K=K, seed=6, opaque=opaque)[:n_inputs]
-    if not opaque:
+    plain version, on the same inputs and cotangents."""
+    arrays = composite_inputs(B=B, K=K, seed=6,
+                              opaque=rays == "opaque")[:n_inputs]
+    if rays == "moderate":
         arrays[1][:] *= min(1.0, 16 / K)
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
     cots = [torch.from_numpy(c).to(cuda) for c in cotangents(B, K)[:n_cots]]
@@ -50,13 +55,13 @@ def _composite_kernel_vs_plain(cuda, fns, B, K, opaque, n_inputs, n_cots):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("opaque", [False, True], ids=["moderate", "opaque"])
+@pytest.mark.parametrize("rays", RAYS)
 @pytest.mark.parametrize("shape", COMPOSITE_SHAPES, ids=str)
-def test_composite_kernel_matches_plain_on_card(cuda, shape, opaque):
+def test_composite_kernel_matches_plain_on_card(cuda, shape, rays):
     # full mode: weights, rgb_map, acc, depth; d_sigma, d_dists, d_rgb, d_z
     kern, plain = _composite_kernel_vs_plain(
         cuda, (tcomp.composite_rays, tcomp.composite_rays_plain), *shape,
-        opaque, n_inputs=4, n_cots=4)
+        rays, n_inputs=4, n_cots=4)
     for a, b in zip(kern[0], plain[0]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     for a, b in zip(kern[1], plain[1]):
@@ -64,13 +69,13 @@ def test_composite_kernel_matches_plain_on_card(cuda, shape, opaque):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("opaque", [False, True], ids=["moderate", "opaque"])
+@pytest.mark.parametrize("rays", RAYS)
 @pytest.mark.parametrize("shape", COMPOSITE_SHAPES, ids=str)
-def test_transmittance_kernel_matches_plain_on_card(cuda, shape, opaque):
+def test_transmittance_kernel_matches_plain_on_card(cuda, shape, rays):
     # weights-only entry (null rgb / z pointers): weights; d_sigma, d_dists
     kern, plain = _composite_kernel_vs_plain(
         cuda, (tcomp.transmittance_weights,
-               tcomp.transmittance_weights_plain), *shape, opaque,
+               tcomp.transmittance_weights_plain), *shape, rays,
         n_inputs=2, n_cots=1)
     for a, b in zip(kern[0] + kern[1], plain[0] + plain[1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
