@@ -7,28 +7,33 @@
 2. Build: compiles the CUDA kernels of nmf_tpu_torch/csrc with nvcc.
 3. Kernels: times an empty kernel's launch from the composite library
    back to back (the launch floor). Holds each kernel against its plain
-   PyTorch version at the train step's shapes (B = 4096 rays x K = 192
-   samples for composite; N = 786,432 rows x C = 160 channels into
-   R = 16,384 rows for binsum), and times the kernel alone, its wrapper,
-   the plain version and, for binsum, the one-call yardstick
-   ``index_add_`` (which the port never calls). composite's kernels are
-   timed alone L2-warm (the same buffers again and again) and L2-cold
-   (rotating over copies of them that fill the L2 four times), each back
-   to back and as device time from the profiler. composite is also held
-   and timed in full mode and at the flagship's passes (8192 x 192
-   forward only, 8192 x 96, 1024 x 96), and held at ragged shapes (K = 1,
-   33, 1024). binsum is
-   also held and timed at the other shapes of the train step's launches:
-   planes at 300^2 after the upsample, lines (C = 80) at 128 and 300
-   cells.
-   Then runs one train step and one eval render of a tiny model=tensorf on
-   the card and on the CPU (the plain versions) and compares the loss, the
-   image and every gradient.
-4. Main path: trains model=tensorf on synthetic_sphere at the model's full
-   width (128^3 grid, 16/24 components, app_dim 24, featureC 128, 4096
-   rays x 192 samples) for 300 iterations, through one upsample to 300^3
-   and two alpha-mask rebuilds, then evaluates the test views. Checks the
-   loss is finite, every kernel was launched, and the test PSNR > 17 dB.
+   PyTorch version at the main paths' shapes and times the kernel alone,
+   its wrapper, the plain version and, for binsum, the one-call yardstick
+   ``index_add_`` (which the port never calls). composite (K1/K2) at the
+   tensorf step (B = 4096 rays x K = 192 samples, weights-only and full
+   mode) and the flagship's passes (4096 x 192 forward only, 4096 x 96,
+   1024 x 96), held at ragged shapes (K = 1, 33, 1024); binsum (K3) at
+   every shape of both paths (``binsum_cases``: field planes and lines,
+   the flagship's bounce-ray parent gathers, segment sums, envmap SAT
+   corners and retrace rows). Device times from the profiler, L2-warm (the
+   same buffers again and again) and L2-cold (rotating over copies that
+   fill the L2 four times), are read after the main paths. Every launch of
+   a main path is counted by its sizes, and the run fails if a main path
+   launched a kernel at sizes that were not held here.
+   Then runs one train step and one eval render of a tiny model=tensorf
+   and a tiny model=microfacet_tensorf2 on the card and on the CPU (the
+   plain versions) and compares the loss, the image and every gradient.
+4. Main paths, at the shipped widths on synthetic_sphere: model=tensorf
+   (128^3 grid, 16/24 components, app_dim 24, featureC 128, 4096 rays x
+   192 samples) for 300 iterations through one upsample to 300^3 and two
+   alpha-mask rebuilds; then model=microfacet_tensorf2 (the same field
+   with normals, envmap 512 x 1024, 192 / 96 / 96 samples a ray, bounce
+   budgets [65536, 16384], 1024 retrace rays, batch 4096: the controller
+   may move it within [4096, 8192] towards 200,000 valid samples a step,
+   and at the ~72 valid samples a ray of this scene it stays at 4096) for
+   600 iterations through one upsample. Each evaluates the test views and
+   fails unless the loss is finite, every kernel was launched on it and
+   the test PSNR > 17 dB.
 
 Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
@@ -192,10 +197,11 @@ def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
         return (outs if isinstance(outs, tuple) else (outs,)), ts
 
     shape = f"B={B} K={K} {'full' if full else 'weights-only'}"
+    sizes = (B, K)
     runs = [outputs(f) for f in (fn, plain)]
     # T is a product of up to K factors, rounded in another order than the
     # plain cumprod's: 1e-5 relative plus 1e-6
-    fwd = {"shape": shape, "max_abs_err": max_err(
+    fwd = {"shape": shape, "sizes": sizes, "max_abs_err": max_err(
         torch, [(a.detach(), b.detach()) for a, b in
                 zip(runs[0][0], runs[1][0])],
         1e-5, 1e-6, f"composite forward {shape}")}
@@ -204,7 +210,7 @@ def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
         # every input's gradient; the reverse scan without division against
         # cumprod's autograd: 1e-4 relative plus 1e-5 on unit cotangents
         grads = [torch.autograd.grad(outs, ts, cots) for outs, ts in runs]
-        bwd = {"shape": shape, "max_abs_err": max_err(
+        bwd = {"shape": shape, "sizes": sizes, "max_abs_err": max_err(
             torch, list(zip(*grads)), 1e-4, 1e-5,
             f"composite backward {shape}")}
     torch.cuda.synchronize()
@@ -266,15 +272,19 @@ def composite_case(torch, dev, gen, deferred, B, K, full, backward, timed):
     return fwd, bwd
 
 
-# (B, K, full, backward, timed): K1/K2 at every shape the port launches
-# them with now (the tensorf train step) and with the microfacet flagship
-# (ROADMAP A.1), whose three passes are weights-only: the proposal pass
-# (forward only), the primary pass after resampling and the retrace pass.
-# Then ragged shapes, checked in both modes and not timed.
+# The flagship main path's batch: the controller asks for 200,000 valid
+# samples a step, ~2,800 rays at its ~72 valid samples a ray, and clips
+# that up to its 4096 minimum
+FLAGSHIP_B = 4096
+
+# (B, K, full, backward, timed): K1/K2 at every shape the main paths launch
+# them with: the tensorf train step and the flagship's proposal pass
+# (forward only) at 4096 x 192; the flagship's primary pass after
+# resampling and its retrace pass, weights-only. Then ragged shapes,
+# checked in both modes and not timed.
 COMPOSITE_CASES = (
     [(4096, 192, False, True, True), (4096, 192, True, True, True),
-     (8192, 192, False, False, True), (8192, 96, False, True, True),
-     (1024, 96, False, True, True)]
+     (FLAGSHIP_B, 96, False, True, True), (1024, 96, False, True, True)]
     + [(B, K, full, True, False) for B, K in ((1000, 1), (1000, 33),
                                                (257, 1024))
        for full in (False, True)])
@@ -339,6 +349,14 @@ def line_ids(torch, dev, gen, L, n_rays=4096, K=192):
     return torch.clamp(pos.floor(), 0, L - 1)
 
 
+def parent_ids(torch, dev, gen, N, R):
+    """Row ids as the bounce-ray parent gather's backward and the segment
+    sums see them: sorted, in runs of 1-32 rays a parent sample."""
+    runs = torch.randint(1, 33, (N,), generator=gen, device=dev)
+    parents = torch.sort(torch.randperm(R, generator=gen, device=dev)[:N])[0]
+    return torch.repeat_interleave(parents, runs)[:N]
+
+
 def binsum_inputs(torch, dev, gen, ids, R, C):
     """(idx, vals) from ray-walk ids; 1% of the rows are out of range
     (dropped)."""
@@ -349,22 +367,66 @@ def binsum_inputs(torch, dev, gen, ids, R, C):
     return idx, vals
 
 
-def check_binsum(torch, dev, gen):
-    """binsum_rows at each shape the train step's six launches take: the
-    three planes (C = 4 x 40 quad-table channels) at 128^2 and, after the
-    upsample, 300^2 texels; the three lines (C = 2 x 40) at 128 and 300
-    cells, where every id collides thousands of times. The kernels line
-    reports the first shape; every shape is in ``shapes``."""
+def binsum_cases(torch, dev, gen):
+    """(what, R, C, ids) of every shape the two main paths launch K3 with.
+
+    tensorf (six launches a step): the three planes (C = 4 x 40 quad-table
+    channels) at 128^2 and, after the upsample, 300^2 texels; the three
+    lines (C = 2 x 40) at 128 and 300 cells, where every id collides
+    thousands of times. The flagship (twenty a step): its field at 4096
+    rays x 96 samples and the retrace field at 1024 x 96 (planes C = 4 x
+    72, lines C = 2 x 56, before and after the upsample); the parent-gather
+    backward (C = 44) and the segment sums (C = 9) of the 65,536 and 16,384
+    bounce rays onto 393,216 and 98,304 samples; the envmap SAT corners'
+    backward (C = 12, 4 rows a lookup into the 592 x 1168 table) for the
+    65,536 and 16,384 bounce rays and the retrace rays' background; the
+    retrace rows (C = 6)."""
+    sat = 592 * 1168
+    M = FLAGSHIP_B * 96
+    flagship_field = [
+        (f"flagship {what}plane", n * n, 288,
+         plane_ids(torch, dev, gen, n, n, B, 96))
+        for what, B in (("", FLAGSHIP_B), ("retrace ", 1024))
+        for n in (128, 300)] + [
+        (f"flagship {what}line", n, 112,
+         line_ids(torch, dev, gen, n, B, 96))
+        for what, B in (("", FLAGSHIP_B), ("retrace ", 1024))
+        for n in (128, 300)]
+    return [
+        ("tensorf plane", 128 * 128, 160,
+         plane_ids(torch, dev, gen, 128, 128)),
+        ("tensorf plane", 300 * 300, 160,
+         plane_ids(torch, dev, gen, 300, 300)),
+        ("tensorf line", 128, 80, line_ids(torch, dev, gen, 128)),
+        ("tensorf line", 300, 80, line_ids(torch, dev, gen, 300)),
+        *flagship_field,
+        ("flagship parent gather", M, 44,
+         parent_ids(torch, dev, gen, 65536, M)),
+        ("flagship retrace parent gather", 1024 * 96, 44,
+         parent_ids(torch, dev, gen, 16384, 1024 * 96)),
+        ("flagship segment sum", M, 9,
+         parent_ids(torch, dev, gen, 65536, M)),
+        ("flagship retrace segment sum", 1024 * 96, 9,
+         parent_ids(torch, dev, gen, 16384, 1024 * 96)),
+        *[(f"flagship SAT corners, {n} lookups", sat, 12,
+           torch.randint(0, sat, (4 * n,), generator=gen, device=dev))
+          for n in (65536, 16384, 1024)],
+        ("flagship retrace rows", 65536, 6,
+         torch.randperm(65536, generator=gen, device=dev)[:1024]),
+    ]
+
+
+def check_binsum(torch, dev, gen, deferred):
+    """binsum_rows at every shape of ``binsum_cases``: held against its
+    plain version and timed (back to back L2-warm and L2-cold, wrapper,
+    plain, ``index_add_``; device time L2-warm and L2-cold deferred). The
+    kernels line reports the first shape; every shape is in ``shapes``."""
     from nmf_tpu_torch.ops.kernels import binsum as S
     from nmf_tpu_torch.ops.kernels.build import ptr
 
-    cases = [("plane", 128 * 128, 160, plane_ids(torch, dev, gen, 128, 128)),
-             ("plane", 300 * 300, 160, plane_ids(torch, dev, gen, 300, 300)),
-             ("line", 128, 80, line_ids(torch, dev, gen, 128)),
-             ("line", 300, 80, line_ids(torch, dev, gen, 300))]
     stream = torch.cuda.current_stream(dev).cuda_stream
     shapes = []
-    for what, R, C, ids in cases:
+    for what, R, C, ids in binsum_cases(torch, dev, gen):
         idx, vals = binsum_inputs(torch, dev, gen, ids, R, C)
         N = idx.numel()
         out = S.binsum_rows(idx, vals, R)
@@ -388,12 +450,23 @@ def check_binsum(torch, dev, gen):
         plain_ms = time_ms(torch, lambda: S.binsum_rows_plain(idx, vals, R))
         lib_ms = time_ms(torch, lambda: torch.zeros(
             (R, C), device=dev).index_add_(0, idx_in, vals_in))
-        b, by = bound_ms(4 * N + 4 * N * C + 4 * R * C, N * C)
-        shapes.append({"shape": f"{what} N={N} C={C} R={R}",
-                       "max_abs_err": err, "ms": ms, "wrapper_ms": wrap_ms,
-                       "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                       "library_ms": lib_ms})
-        del idx, vals, out, ref, abs_sum, idx_in, vals_in, out_buf
+        # the kernel reads ids and vals and writes the rows they touch;
+        # the wrapper (and index_add_) also writes every other row of the
+        # (R, C) output, as zeros
+        touched = torch.unique(idx_in).numel()
+        b, by = bound_ms(4 * N + 4 * N * C + 4 * touched * C, N * C)
+        wrap_b, _ = bound_ms(4 * N + 4 * N * C + 4 * R * C, N * C)
+        row = {"shape": f"{what} N={N} C={C} R={R}", "sizes": (N, C, R),
+               "touched_rows": touched, "max_abs_err": err,
+               "ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
+               "bound_ms": b, "bound_by": by, "wrapper_bound_ms": wrap_b,
+               "library_ms": lib_ms}
+        shapes.append(row)
+        warm, cold = launchers(S.BINSUM, (idx, vals, out_buf),
+                               (N, C, R, stream))
+        row["cold_ms"] = time_ms(torch, cold, iters=100)
+        deferred.append((row, warm, cold, "binsum"))
+        del out, ref, abs_sum, idx_in, vals_in
     first = shapes[0]
     return [{"name": "binsum_rows", "route": "cuda",
              "source": "nmf_tpu_torch/csrc/binsum.cu",
@@ -409,6 +482,7 @@ def check_small_path(torch, dev):
     from nmf_tpu_torch import config, trainer
     from nmf_tpu_torch.builders import build_nmf
     from nmf_tpu_torch.data import load_dataset
+    from nmf_tpu_torch.ops.draws import Draws
     from nmf_tpu_torch.render import render
 
     cfg = config.compose([
@@ -429,7 +503,8 @@ def check_small_path(torch, dev):
         jitter = torch.rand((512, nmf.sampler.n_samples),
                             generator=torch.Generator().manual_seed(1)).to(d)
         loss, _ = trainer.compute_loss(nmf, rays, torch.from_numpy(rgb_np).to(d),
-                                       weights, (1.0, 1.0, 1.0), jitter=jitter)
+                                       weights, (1.0, 1.0, 1.0),
+                                       Draws(None, {"jitter": jitter}))
         loss.backward()
         with torch.no_grad():
             image = render(nmf, rays, is_train=False)[0]["rgb_map"]
@@ -447,6 +522,141 @@ def check_small_path(torch, dev):
     return err
 
 
+def check_small_flagship(torch, dev):
+    """One train step (loss and every gradient) and one eval render of a
+    tiny model=microfacet_tensorf2 (grid 16^3, envmap 32 x 64, 16 samples a
+    ray, 8 after the proposal and 8 retraced, bounce budgets [512, 128], 32
+    retrace rays) on the card against the same on the CPU, every random
+    draw made by one CPU generator for both. The envmap's mip bias is 12,
+    so every lookup box spans the map: a box of a few texels is a
+    difference of SAT entries that the card's cumsum and the CPU's sum in
+    another order (tests/test_torch_flagship.py)."""
+    from nmf_tpu_torch import config, trainer
+    from nmf_tpu_torch.builders import build_nmf
+    from nmf_tpu_torch.data import load_dataset
+    from nmf_tpu_torch.ops.draws import Draws
+    from nmf_tpu_torch.render import render
+
+    cfg = config.compose([
+        "model=microfacet_tensorf2", "dataset=synthetic_sphere",
+        "dataset.image_size=16", "dataset.n_views=4",
+        "field.N_voxel_init=4096", "field.N_voxel_final=8000",
+        "field.upsamp_list=[]", "field.gather_dtype=f32",
+        "model.arch.max_samples_per_ray=16",
+        "model.arch.recur_samples_per_ray=8",
+        "model.arch.proposal_samples_per_ray=8",
+        "model.arch.model.brdf_ray_budget=[512,128]",
+        "model.arch.model.max_retrace_rays=[32]",
+        "model.arch.bg_module.bg_resolution=32"])
+    ds = load_dataset(cfg["dataset"], None, "train")
+    rays_np, rgb_np = ds["all_rays"][:64], ds["all_rgbs"][:64]
+    weights = trainer.LossWeights(l1_weight=8e-5, ori_lambda=0.1)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
+                        tuple(cfg["dataset"]["near_far"]), seed=0, device=d)
+        with torch.no_grad():
+            nmf.bg_module.mipbias.fill_(12.0)
+        trainer.Optimizer(nmf, trainer.OptimConfig())  # gradients on all
+        rays = torch.from_numpy(rays_np).to(d)
+        loss, m = trainer.compute_loss(
+            nmf, rays, torch.from_numpy(rgb_np).to(d), weights,
+            (1.0, 1.0, 1.0), draws=Draws(torch.Generator().manual_seed(1)))
+        loss.backward()
+        with torch.no_grad():
+            image = render(nmf, rays, is_train=False,
+                           draws=Draws(torch.Generator().manual_seed(2)),
+                           bg_cache=nmf.bg_module.prepare())[0]["rgb_map"]
+        runs.append([loss.detach(), m["thin_scale"], image]
+                    + [t.grad for _, t, _ in
+                       trainer.differentiated_tensors(nmf)
+                       if t.grad is not None])
+    if len(runs[0]) != len(runs[1]) or len(runs[0]) < 20:
+        fail("small flagship: the card and the CPU differentiated other "
+             "tensors")
+    pairs = [(a.cpu(), b) for a, b in zip(*runs)]
+    err = max_err(torch, pairs[:3], 1e-4, 1e-5, "small flagship loss/render")
+    for i, (a, b) in enumerate(pairs[3:]):
+        scale = float(b.abs().max())
+        err = max(err, max_err(torch, [(a, b)], 1e-3, 1e-3 * scale + 1e-9,
+                               f"small flagship gradient {i}"))
+    return err
+
+
+# (label, overrides) of the main paths, at the shipped widths. tensorf:
+# 300 iterations through one upsample (128^3 -> 300^3 at 150) and two
+# alpha-mask rebuilds (100, 200). The flagship: 600 iterations through one
+# upsample (at 300) and no mask rebuild: its density stays under the mask's
+# alpha threshold (1e-3 at the march step) for hundreds of iterations, and
+# a rebuild before it clears it culls the whole scene (PERF.md, section 6).
+FLAGSHIP_ITERS = 600
+MAIN_PATHS = (
+    ("tensorf", ["model=tensorf", "model.params.n_iters=300",
+                 "field.upsamp_list=[150]",
+                 "model.arch.sampler.update_list=[100,200]"]),
+    ("microfacet_tensorf2", [
+        "model=microfacet_tensorf2", f"model.params.n_iters={FLAGSHIP_ITERS}",
+        f"field.upsamp_list=[{FLAGSHIP_ITERS // 2}]",
+        "model.arch.sampler.update_list=[]"]),
+)
+
+
+def drive_main_path(torch, kernels, cfg, label, card, reconstruction):
+    """Train and evaluate one configuration with every kernel count set to
+    0 first. Fails unless the loss is finite, every kernel launched, only at
+    sizes that its check held, and the test PSNR clears the bar. Returns
+    (results, launches by kernel, launches by kernel and sizes)."""
+    from nmf_tpu_torch import train
+
+    n_iters = int(cfg["model"]["params"]["n_iters"])
+    for k in kernels:
+        k["kernel"].launches = 0
+        k["kernel"].launches_by_size.clear()
+    at_eval = {}
+    evaluate = train.eval_lib.evaluate
+
+    def counted_evaluate(*args, **kwargs):
+        at_eval.update({k["name"]: k["kernel"].launches for k in kernels})
+        return evaluate(*args, **kwargs)
+
+    train.eval_lib.evaluate = counted_evaluate
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        _, res = reconstruction(cfg, log=lambda s: print(f"  {s}"))
+    finally:
+        train.eval_lib.evaluate = evaluate
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k["name"]: k["kernel"].launches for k in kernels}
+    by_size = {k["name"]: dict(k["kernel"].launches_by_size)
+               for k in kernels}
+    print(f"main path {label}: {wall:.1f} s, launches {launches}, "
+          f"by sizes {by_size}, results {res}")
+    if not math.isfinite(res.get("loss", float("nan"))):
+        fail(f"{label}: training loss is not finite: {res.get('loss')}")
+    for k in kernels:
+        if launches[k["name"]] <= 0:
+            fail(f"{label}: kernel {k['name']} was not launched on the main "
+                 "path")
+        unheld = set(by_size[k["name"]]) - {r["sizes"] for r in k["shapes"]}
+        if unheld:
+            fail(f"{label}: kernel {k['name']} was launched at sizes "
+                 f"{sorted(unheld)} that its check did not hold")
+    if not res.get("psnr", 0.0) > PSNR_BAR:
+        fail(f"{label}: test PSNR {res.get('psnr')} <= {PSNR_BAR} dB")
+    per_step = {k: round(v / n_iters, 2) for k, v in at_eval.items()}
+    thin = "".join(f", {k} {res[k]:.3f}" for k in
+                   ("thin_scale", "thin_scale_retrace") if k in res)
+    print(f"{label} {n_iters} iters on {card}: train "
+          f"{res['rays_per_sec']:.0f} rays/s, mean step "
+          f"{1e3 * res['train_seconds'] / n_iters:.2f} ms (host clock, "
+          f"schedule events included), wall {wall:.1f} s, test PSNR "
+          f"{res['psnr']:.2f} dB, SSIM {res['ssim']:.4f}{thin}, launches "
+          f"per train step {per_step}")
+    return res, launches, by_size
+
+
 def main():
     import torch
 
@@ -459,8 +669,6 @@ def main():
         from nmf_tpu_torch.train import reconstruction
     except ImportError as e:
         fail(f"nmf_tpu_torch is not importable next to this script ({e})")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
 
@@ -493,34 +701,23 @@ def main():
     deferred = []
     floor = launch_floor(torch, dev, deferred)
     kernels = (check_composite(torch, dev, gen, deferred)
-               + check_binsum(torch, dev, gen))
+               + check_binsum(torch, dev, gen, deferred))
     print(f"small path, card vs CPU: max_abs_err {check_small_path(torch, dev):.3e}")
+    print("small flagship, card vs CPU: max_abs_err "
+          f"{check_small_flagship(torch, dev):.3e}")
 
-    # ---- main path: full-width model=tensorf training + test eval ----
+    # ---- the main paths: full-width training + test eval, tensorf then
+    # the microfacet flagship; each kernel's count is set to 0 just before
+    # a path and read just after it ----
     shutil.rmtree(LOG_DIR, ignore_errors=True)
-    cfg = config.compose([
-        "model=tensorf", "dataset=synthetic_sphere", "device=cuda",
-        "model.params.n_iters=300", "field.upsamp_list=[150]",
-        "model.arch.sampler.update_list=[100,200]",
-        f"basedir={LOG_DIR}", "expname=tensorf", "progress_refresh_rate=50"])
-    for k in kernels:
-        k["kernel"].launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    nmf, res = reconstruction(cfg, log=lambda s: print(f"  {s}"))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {k["name"]: k["kernel"].launches for k in kernels}
-    print(f"main path: {wall:.1f} s, launches {launches}, results {res}")
-    if not math.isfinite(res.get("loss", float("nan"))):
-        fail(f"training loss is not finite: {res.get('loss')}")
-    for kname, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {kname} was not launched on the main path")
-    if not res.get("psnr", 0.0) > PSNR_BAR:
-        fail(f"test PSNR {res.get('psnr')} <= {PSNR_BAR} dB")
-    print(f"tensorf 300 iters on {card}: train {res['rays_per_sec']:.0f} "
-          f"rays/s, test PSNR {res['psnr']:.2f} dB, SSIM {res['ssim']:.4f}")
+    launches, by_size = {}, {}
+    for label, overrides in MAIN_PATHS:
+        cfg = config.compose([*overrides, "dataset=synthetic_sphere",
+                              "device=cuda", f"basedir={LOG_DIR}",
+                              f"expname={label}",
+                              "progress_refresh_rate=100"])
+        res, launches[label], by_size[label] = drive_main_path(
+            torch, kernels, cfg, label, card, reconstruction)
 
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
@@ -530,6 +727,10 @@ def main():
         if cold is not None:
             row["device_cold_ms"] = device_ms(torch, cold, kname)
     for k in kernels:
+        for row in k["shapes"]:
+            row["launches_by_path"] = {
+                p: n[k["name"]].get(row["sizes"], 0)
+                for p, n in by_size.items()}
         k |= k["shapes"][0]  # a kernel's line gives its first shape
     print(f"launch floor on {card}: an empty kernel of the composite "
           f"library, back to back {floor['ms']:.4f} ms, device "
@@ -540,18 +741,26 @@ def main():
                 print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
                       f"{row['max_abs_err']:.3e} (checked, not timed)")
                 continue
-            cold_txt = ("" if "cold_ms" not in row else
-                        f", L2-cold {row['cold_ms']:.4f} ms (device "
+            wrap_bound = ("" if "wrapper_bound_ms" not in row else
+                          f" (wrapper's {row['wrapper_bound_ms']:.4f}, "
+                          f"{row['touched_rows']} rows touched)")
+            cold_txt = ("" if "device_cold_ms" not in row else
+                        f", L2-cold {row.get('cold_ms', float('nan')):.4f}"
+                        f" ms (device "
                         f"{ms_or_not(row.get('device_cold_ms'))})")
             print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (device "
                   f"{ms_or_not(row.get('device_ms'))}){cold_txt}, wrapper "
                   f"{row['wrapper_ms']:.4f}, plain "
                   f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-                  f"{row['bound_by']}, library {row['library_ms']}")
+                  f"{row['bound_by']}{wrap_bound}, library "
+                  f"{row['library_ms']}, launches {row['launches_by_path']}")
 
     line = [{key: v for key, v in k.items() if key != "kernel"}
-            | {"launches": launches[k["name"]]} for k in kernels]
+            | {"launches": launches["microfacet_tensorf2"][k["name"]],
+               "launches_by_path": {p: n[k["name"]]
+                                    for p, n in launches.items()}}
+            for k in kernels]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

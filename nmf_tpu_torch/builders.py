@@ -1,16 +1,27 @@
 """Instantiate the composed model from a hydra-style config dict
-(``nmf_tpu/builders.py``) for the targets of this slice: the TensorVMSplit
-field, the AlphaGridSampler and the TensoRF shading model. Every other
-target raises ``NotImplementedError`` naming the slice that brings it.
+(``nmf_tpu/builders.py``) for the targets of the ported slices: the
+TensorVMSplit field, the AlphaGridSampler, the TensoRF and Microfacet
+shading models (RandHydraMLPDiffuse, MLPBRDF with ListISH encoders, GGX
+sampling) and the IntegralEquirect envmap. Every other target and knob
+raises ``NotImplementedError`` naming the slice that brings it.
 """
+import math
+
 import torch
 
 from .fields.tensorf import init_tensorvm_split
+from .models.microfacet import init_microfacet
 from .models.tensorf import init_tensorf_shade
+from .modules.bg import init_integral_equirect
+from .modules.brdf import init_mlp_brdf
+from .modules.brdf_samplers import GGXSampler
+from .modules.ish import ListISH
+from .modules.render_modules import RandHydraMLPDiffuse
 from .render import NMF
 from .samplers.alphagrid import AlphaGridSampler
 
-_LATER = "is not ported yet: it comes with the microfacet slice of nmf_tpu_torch"
+_LATER = ("is not ported yet: it comes with a later slice of nmf_tpu_torch "
+          "(ROADMAP A.2 / A.4)")
 
 
 def _target(cfg):
@@ -37,7 +48,7 @@ def build_field(generator, cfg, aabb):
                "N_voxel_init", "N_voxel_final", "upsamp_list", "init_mode",
                "d_init_val", "app_init_val", "activation", "density_shift",
                "step_ratio", "gather_dtype", "lr", "lr_net",
-               "distance_scale"}
+               "distance_scale", "smoothing", "numer_grad"}
     kw = {k: v for k, v in kw.items() if k in allowed}
     if "upsamp_list" in kw:
         kw["upsamp_list"] = tuple(kw["upsamp_list"])
@@ -59,14 +70,81 @@ def build_sampler(cfg, aabb, near_far):
     return AlphaGridSampler(aabb, near_far=near_far, **kw)
 
 
+def build_encoder(cfg):
+    if not cfg:
+        return None
+    t = _target(cfg)
+    if not t.endswith("ListISH"):
+        raise NotImplementedError(f"encoder {t!r} {_LATER}")
+    return ListISH(degs=tuple(_clean(cfg).get("degs", (0, 1, 2, 4))))
+
+
+def build_microfacet(generator, kw, app_dim):
+    for key, why in (("visibility_module", "the visibility module"),
+                     ("bright_sampler", "the bright-ray sampler"),
+                     ("russian_roulette", "Russian roulette"),
+                     ("detach_N_iters", "the detach_N schedule"),
+                     ("percent_bright", "bright-ray substitution")):
+        if kw.get(key):
+            raise NotImplementedError(f"model.arch.model.{key} ({why}) "
+                                      f"{_LATER}")
+    dm_cfg = kw.pop("diffuse_module", None) or {}
+    dt = _target(dm_cfg)
+    if dt and not dt.endswith("RandHydraMLPDiffuse"):
+        raise NotImplementedError(f"diffuse module {dt!r} {_LATER}")
+    dm_kw = _clean(dm_cfg)
+    for key in ("view_encoder", "roughness_view_encoder"):
+        if dm_kw.pop(key, None):
+            raise NotImplementedError(f"diffuse_module.{key} {_LATER}")
+    if int(dm_kw.pop("pospe", -1)) >= 0:
+        raise NotImplementedError(f"diffuse_module.pospe >= 0 {_LATER}")
+    allowed = {"feape", "hidden_w", "num_layers", "initializer", "lr",
+               "start_roughness", "tint_bias", "diffuse_bias", "diffuse_mul",
+               "roughness_bias", "f0_bias", "roughness_cfg"}
+    dm = RandHydraMLPDiffuse(app_dim, generator=generator,
+                             **{k: v for k, v in dm_kw.items()
+                                if k in allowed})
+
+    brdf_cfg = kw.pop("brdf", None) or {}
+    bt = _target(brdf_cfg)
+    if bt and not bt.endswith("MLPBRDF"):
+        raise NotImplementedError(f"brdf {bt!r} {_LATER}")
+    brdf_kw = _clean(brdf_cfg)
+    brdf_kw["h_encoder"] = build_encoder(brdf_kw.pop("h_encoder", None))
+    brdf_kw["d_encoder"] = build_encoder(brdf_kw.pop("d_encoder", None))
+    brdf = init_mlp_brdf(app_dim, generator=generator, **brdf_kw)
+
+    st = _target(kw.pop("brdf_sampler", None) or {})
+    if st and not st.endswith("GGXSampler"):
+        raise NotImplementedError(f"brdf sampler {st!r} {_LATER}")
+    mr = kw.pop("max_retrace_rays", None)
+    if mr is not None:
+        # retrace buffers are rounded up to powers of two
+        kw["max_retrace_rays"] = tuple(
+            int(2 ** math.ceil(math.log2(max(m, 1)))) for m in mr)
+    return init_microfacet(app_dim, dm, brdf, GGXSampler(), **kw)
+
+
 def build_model(generator, cfg, app_dim):
     t = _target(cfg)
+    kw = _clean(cfg)
+    if t.endswith("Microfacet"):
+        return build_microfacet(generator, kw, app_dim)
     if not (t.endswith("TensoRF") or not t):
         raise NotImplementedError(f"model {t!r} {_LATER}")
-    dm_cfg = _clean(cfg).get("diffuse_module") or {}
+    dm_cfg = kw.get("diffuse_module") or {}
     if _target(dm_cfg).endswith("MLPRender_PE"):
         raise NotImplementedError(f"diffuse module MLPRender_PE {_LATER}")
     return init_tensorf_shade(app_dim, generator=generator, **_clean(dm_cfg))
+
+
+def build_bg(cfg):
+    if not cfg:
+        return None
+    t = _target(cfg)
+    if not t.endswith("IntegralEquirect"):
+        raise NotImplementedError(f"bg module {t!r} {_LATER}")
+    return init_integral_equirect(**_clean(cfg))
 
 
 def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda") -> NMF:
@@ -77,22 +155,32 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda") -> NMF:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but torch sees no CUDA device; "
                            "pass device=cpu to run on the CPU")
-    for key in ("bg_module", "normal_module", "hdr"):
+    for key in ("normal_module", "hdr", "use_predicted_normals",
+                "detach_inter"):
         if arch_cfg.get(key):
             raise NotImplementedError(f"model.arch.{key} {_LATER}")
-    for key in ("proposal_samples_per_ray", "app_samples_per_ray",
-                "merge_runs"):
+    if int(arch_cfg.get("geonorm_iters", -1) or -1) > 0:
+        raise NotImplementedError(f"model.arch.geonorm_iters {_LATER}")
+    for key in ("app_samples_per_ray", "merge_runs",
+                "recur_proposal_samples_per_ray", "proposal_pad_iters"):
         if int(arch_cfg.get(key, -1) or -1) > 0:
             raise NotImplementedError(f"model.arch.{key} {_LATER}")
     gen = torch.Generator().manual_seed(int(seed))
     rf = build_field(gen, arch_cfg.get("rf", {}), aabb)
     sampler = build_sampler(arch_cfg.get("sampler", {}), aabb, near_far)
     model = build_model(gen, arch_cfg.get("model", {}), rf.app_dim)
+    bg = build_bg(arch_cfg.get("bg_module"))
     tm_t = _target(arch_cfg.get("tonemap") or {})
     if tm_t and "SRGB" not in tm_t:
         raise NotImplementedError(f"tonemap {tm_t!r} {_LATER}")
-    nmf = NMF(rf, sampler, model,
+    nmf = NMF(rf, sampler, model, bg_module=bg,
               max_samples_per_ray=arch_cfg.get("max_samples_per_ray", -1),
+              recur_samples_per_ray=arch_cfg.get("recur_samples_per_ray",
+                                                 -1),
+              proposal_samples_per_ray=arch_cfg.get(
+                  "proposal_samples_per_ray", -1),
+              proposal_pad=arch_cfg.get("proposal_pad", 0.01),
+              recur_stepmul=arch_cfg.get("recur_stepmul", 1.0),
               eval_batch_size=arch_cfg.get("eval_batch_size", 4096),
               lr_scale=arch_cfg.get("lr_scale", 1.0)).to(device)
     sampler.update(rf, init=True)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import utils
+from .ops.draws import Draws
 from .render import NMF, render
 
 
@@ -23,13 +24,14 @@ def _device(nmf: NMF):
 
 
 @torch.no_grad()
-def render_rays_chunked(nmf: NMF, rays, chunk=4096):
+def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None):
     """Render (N, 6) numpy rays on a white background in fixed-size chunks
     (the tail chunk padded with copies of ray 0) -> {map: (N, ...) numpy}.
 
     Ray i goes into chunk i % n_chunks, as nmf_tpu interleaves them so that
     every chunk gets the image-average ray mix; outputs come back in the
-    original order.
+    original order. The envmap cache is built once; chunk i takes its
+    random draws from ``draws`` in scope ``chunk{i}``.
     """
     rays = np.asarray(rays, np.float32)
     N = rays.shape[0]
@@ -44,10 +46,14 @@ def render_rays_chunked(nmf: NMF, rays, chunk=4096):
     if pad:
         rays = np.concatenate([rays, rays[:1].repeat(pad, 0)], 0)
     dev = _device(nmf)
+    if draws is None:
+        draws = Draws(torch.Generator(device=dev).manual_seed(0))
+    bg_cache = nmf.bg_module.prepare() if nmf.bg_module is not None else None
     outs = {}
     for i in range(n_chunks):
         r = torch.from_numpy(rays[i * chunk:(i + 1) * chunk]).to(dev)
-        ims, _ = render(nmf, r, is_train=False, draw_debug=True)
+        ims, _ = render(nmf, r, is_train=False, draw_debug=True,
+                        draws=draws.scoped(f"chunk{i}"), bg_cache=bg_cache)
         for k, v in ims.items():
             outs.setdefault(k, []).append(v)
     out = {k: torch.cat(v)[:N].cpu().numpy() for k, v in outs.items()}
@@ -56,9 +62,9 @@ def render_rays_chunked(nmf: NMF, rays, chunk=4096):
     return out
 
 
-def render_image(nmf: NMF, rays, hw, chunk=4096):
+def render_image(nmf: NMF, rays, hw, chunk=4096, draws=None):
     H, W = hw
-    maps = render_rays_chunked(nmf, rays, chunk=chunk)
+    maps = render_rays_chunked(nmf, rays, chunk=chunk, draws=draws)
     return {k: v.reshape(H, W, *v.shape[1:]) for k, v in maps.items()}
 
 
@@ -92,11 +98,13 @@ def write_png(path, img):
 
 
 def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
-             n_vis: int = -1):
+             n_vis: int = -1, seed: int = 0):
     """Render test views in chunks of ``nmf.eval_batch_size`` rays, return
     {"psnr", "ssim"} means; with ``save_dir`` write {i:03d}.png, err/ and
-    rgbd/ PNGs and mean.txt."""
+    rgbd/ PNGs and mean.txt. Random draws come from a generator seeded
+    with ``seed``."""
     chunk = nmf.eval_batch_size
+    draws = Draws(torch.Generator(device=_device(nmf)).manual_seed(seed))
     W, H = dataset["img_wh"]
     n_px = H * W
     n_images = dataset["all_rays"].shape[0] // n_px
@@ -111,7 +119,8 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
         gt = gt.reshape(H, W, -1)
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + (1 - gt[..., 3:])
-        maps = render_image(nmf, rays, (H, W), chunk=chunk)
+        maps = render_image(nmf, rays, (H, W), chunk=chunk,
+                            draws=draws.scoped(f"image{img_i}"))
         pred = np.clip(maps["rgb_map"], 0, 1)
         stats["psnr"].append(utils.rgb_psnr(pred, gt))
         stats["ssim"].append(utils.rgb_ssim(pred, gt, 1.0))

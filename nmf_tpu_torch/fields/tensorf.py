@@ -4,11 +4,14 @@
 basis matrices are parameters, the scene box ``aabb`` is a buffer. The query
 path gathers one quad-table row per (sample, plane) and one pair-table row
 per (sample, line); the plane and line cotangents are accumulated by the
-``binsum_rows`` kernel (``ops/grid_sample.TakeRows``).
+``binsum_rows`` kernel (``ops/grid_sample.TakeRows``). With normals, the
+tables also carry the density planes filtered by the smoothed derivative
+kernels and the differenced density lines, so one gathered row gives
+density, appearance and the density gradient.
 
-Not in this slice: smoothed normals (``compute_normals``,
-``compute_all(with_normals=True)``), ``fixed_shape`` padding, ``shrink``,
-``dbasis``, and the TV / orthogonality regularizers.
+Not ported yet: ``compute_normals`` on its own, autodiff normals
+(``numer_grad=False``), ``fixed_shape`` padding, ``shrink``, ``dbasis``,
+and the TV / orthogonality regularizers.
 """
 import math
 
@@ -17,9 +20,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.grid_sample import (line_interp, quad_gather_2d,
-                               resize_align_corners_1d,
-                               resize_align_corners_2d)
+from ..ops.grid_sample import (conv1d_same, conv2d_same, line_interp,
+                               quad_gather_2d, resize_align_corners_1d,
+                               resize_align_corners_2d,
+                               smoothed_derivative_kernels_2d)
+from ..ops.safemath import normalize
 from ..utils import n_to_reso
 
 # plane i holds axes MAT_MODE[i]; line i holds axis VEC_MODE[i]
@@ -41,13 +46,16 @@ class FactorGrid(nn.Module):
     def n_comp(self) -> int:
         return self.planes[0].shape[0]
 
-    def query(self, coords):
+    def query(self, coords, dtype=None):
         """coords: (..., 3) normalized to [-1, 1] -> list of 3 (..., C)
-        factor products, gathered in the parameters' dtype."""
+        factor products, gathered in ``dtype`` (default: the parameters')
+        and accumulated in f32."""
         feats = []
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             plane, line = self.planes[i], self.lines[i]
+            if dtype is not None:
+                plane, line = plane.to(dtype), line.to(dtype)
             pc = quad_gather_2d(plane, torch.stack(
                 [coords[..., m0], coords[..., m1]], dim=-1))
             lc = line_interp(line, coords[..., VEC_MODE[i]])
@@ -77,8 +85,12 @@ class TensorVMSplit(nn.Module):
                  grid_size, app_dim=24, activation="softplus",
                  density_shift=-4.0, distance_scale=25.0, step_ratio=0.5,
                  gather_dtype="bf16", n_voxel_list=(), upsamp_list=(),
-                 lr=0.02, lr_net=1e-3):
+                 lr=0.02, lr_net=1e-3, smoothing=1.0, numer_grad=True):
         super().__init__()
+        if not numer_grad:
+            raise NotImplementedError("field.numer_grad=false (autodiff "
+                                      "normals) is not ported yet")
+        self.smoothing = float(smoothing)
         self.density_rf = density_rf
         self.app_rf = app_rf
         self.basis_mat = nn.Parameter(basis_mat)
@@ -136,39 +148,64 @@ class TensorVMSplit(nn.Module):
     def _contract_density(feats):
         return sum(f.sum(dim=-1) for f in feats)
 
-    def compute_densityfeature(self, xyz):
-        """World xyz (..., 3/4) -> density (...), gathered in f32."""
+    def compute_densityfeature(self, xyz, use_gather_dtype=False):
+        """World xyz (..., 3/4) -> density (...), gathered in f32, or in
+        the gather dtype with ``use_gather_dtype`` (the proposal pass: the
+        same values compute_all gives)."""
         coords = self.normalize_coord(xyz)[..., :3]
+        gd = GATHER_DTYPES[self.gather_dtype] if use_gather_dtype else None
         return self.feature2density(
-            self._contract_density(self.density_rf.query(coords)))
+            self._contract_density(self.density_rf.query(coords, gd)))
 
     def compute_appfeature(self, xyz):
         coords = self.normalize_coord(xyz)[..., :3]
         return torch.cat(self.app_rf.query(coords), dim=-1) @ self.basis_mat
 
+    def _dkernels(self):
+        """(kx, ky, k1): the smoothed plane derivative kernels and the line
+        central difference [-1/2, 0, 1/2] (d/d index)."""
+        kx, ky = smoothed_derivative_kernels_2d(self.smoothing)
+        return kx, ky, np.array([-0.5, 0.0, 0.5])
+
     def compute_all(self, xyz, with_normals=False):
-        """(density, app_features, None) from ONE gathered row per factor:
-        the density and appearance tables are concatenated channel-wise."""
-        if with_normals:
-            raise NotImplementedError(
-                "smoothed field normals are not ported yet (microfacet slice)")
+        """(density, app_features, normals or None) from ONE gathered row
+        per factor: the density and appearance tables (and, with normals,
+        the density planes filtered by the derivative kernels and the
+        differenced lines) are concatenated channel-wise. The normals are
+        normalize(-grad), the smoothed gradient of the density feature."""
         coords = self.normalize_coord(xyz)[..., :3]
         d_rf, a_rf = self.density_rf, self.app_rf
-        Cd = d_rf.n_comp
+        Cd, Ca = d_rf.n_comp, a_rf.n_comp
         gd = GATHER_DTYPES[self.gather_dtype]
+        if with_normals:
+            kx, ky, k1 = self._dkernels()
         d_feats, a_feats = [], []
+        dgrads = [[], [], []]
         for i in range(3):
             m0, m1 = MAT_MODE[i]
-            plane = torch.cat([d_rf.planes[i], a_rf.planes[i]]).to(gd)
-            line = torch.cat([d_rf.lines[i], a_rf.lines[i]]).to(gd)
-            pc = quad_gather_2d(plane, torch.stack(
+            v = VEC_MODE[i]
+            dp, dl = d_rf.planes[i], d_rf.lines[i]
+            parts_p, parts_l = [dp, a_rf.planes[i]], [dl, a_rf.lines[i]]
+            if with_normals:
+                parts_p += [conv2d_same(dp, kx), conv2d_same(dp, ky)]
+                parts_l.append(conv1d_same(dl, k1))
+            pc = quad_gather_2d(torch.cat(parts_p).to(gd), torch.stack(
                 [coords[..., m0], coords[..., m1]], dim=-1))
-            lc = line_interp(line, coords[..., VEC_MODE[i]])
-            d_feats.append(pc[..., :Cd] * lc[..., :Cd])
-            a_feats.append(pc[..., Cd:] * lc[..., Cd:])
+            lc = line_interp(torch.cat(parts_l).to(gd), coords[..., v])
+            p_d, l_d = pc[..., :Cd], lc[..., :Cd]
+            d_feats.append(p_d * l_d)
+            a_feats.append(pc[..., Cd:Cd + Ca] * lc[..., Cd:Cd + Ca])
+            if with_normals:
+                dgrads[m0].append(pc[..., Cd + Ca:2 * Cd + Ca] * l_d)
+                dgrads[m1].append(pc[..., 2 * Cd + Ca:3 * Cd + Ca] * l_d)
+                dgrads[v].append(p_d * lc[..., Cd + Ca:2 * Cd + Ca])
         sigma = self.feature2density(self._contract_density(d_feats))
         app = torch.cat(a_feats, dim=-1) @ self.basis_mat
-        return sigma, app, None
+        if not with_normals:
+            return sigma, app, None
+        g = torch.stack([self._contract_density(dgrads[j])
+                         for j in range(3)], dim=-1)
+        return sigma, app, normalize(-g)
 
     # ---- regularizers ----
     def density_L1(self):

@@ -10,6 +10,9 @@ class TensoRFShade(nn.Module):
         super().__init__()
         self.diffuse_module = diffuse_module
 
+    def needs_normals(self, recur: int) -> bool:
+        return False
+
     def check_schedule(self, iteration: int) -> bool:
         return False
 

@@ -2,9 +2,12 @@
 
 Layers are ``nn.Linear``s (weight (out, in)); nmf_tpu keeps ``{"w": (in,
 out), "b"}`` dicts, and ``weights.from_jax_state_dict`` transposes between
-the two. Weights and biases are drawn from U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the
-distribution of ``nn.Linear``'s default init and of nmf_tpu's default
-initializer, from an explicit ``torch.Generator``.
+the two. Initial values come from an explicit ``torch.Generator``, from the
+distributions of nmf_tpu's initializers: the default draws weights and
+biases from U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (``nn.Linear``'s default);
+``kaiming`` (bound sqrt(6 / fan_in)), ``xavier`` (sqrt(2) sqrt(6 / (fan_in +
+fan_out))) and ``xavier_sigmoid`` (sqrt(6 / (fan_in + fan_out))) draw
+uniform weights and zero biases.
 """
 import math
 
@@ -12,9 +15,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def _weight_bound(initializer, fan_in, fan_out):
+    if initializer == "kaiming":
+        return math.sqrt(6.0 / fan_in)
+    if initializer == "xavier":
+        return math.sqrt(2.0) * math.sqrt(6.0 / (fan_in + fan_out))
+    if initializer == "xavier_sigmoid":
+        return math.sqrt(6.0 / (fan_in + fan_out))
+    return None
+
+
 class MLP(nn.Module):
     def __init__(self, input_w, output_w, num_layers, hidden_w=128,
-                 generator=None):
+                 generator=None, initializer=None):
         super().__init__()
         if num_layers < 1:
             raise ValueError("MLP needs at least one layer")
@@ -23,9 +36,17 @@ class MLP(nn.Module):
             nn.Linear(widths[i], widths[i + 1])
             for i in range(len(widths) - 1))
         for layer in self.layers:
-            bound = 1.0 / math.sqrt(layer.in_features)
+            bound = _weight_bound(initializer, layer.in_features,
+                                  layer.out_features)
+            default = bound is None
+            if default:
+                bound = 1.0 / math.sqrt(layer.in_features)
             nn.init.uniform_(layer.weight, -bound, bound, generator=generator)
-            nn.init.uniform_(layer.bias, -bound, bound, generator=generator)
+            if default:
+                nn.init.uniform_(layer.bias, -bound, bound,
+                                 generator=generator)
+            else:
+                nn.init.zeros_(layer.bias)
 
     def forward(self, x):
         n = len(self.layers)

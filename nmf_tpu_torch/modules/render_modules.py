@@ -1,9 +1,12 @@
-"""Appearance heads (``nmf_tpu/modules/render_modules.py``): the subset of
-the tensorf slice, ``PE`` and ``MLPRenderFea``."""
+"""Appearance and material heads (``nmf_tpu/modules/render_modules.py``):
+``PE``, ``MLPRenderFea`` (tensorf) and ``RandHydraMLPDiffuse``
+(microfacet)."""
+import math
+
 import torch
 import torch.nn as nn
 
-from ..ops.safemath import positional_encoding
+from ..ops.safemath import inv_sigmoid, positional_encoding
 from .mlp import MLP
 
 
@@ -45,3 +48,77 @@ class MLPRenderFea(nn.Module):
         if self.viewpe > 0:
             indata.append(positional_encoding(viewdirs, self.viewpe))
         return torch.sigmoid(self.mlp(torch.cat(indata, dim=-1)))
+
+
+class RandHydraMLPDiffuse(nn.Module):
+    """The microfacet material head: albedo, tint, f0 and roughness from
+    one-layer MLPs of the appearance features, with calibrated diffuse and
+    roughness biases (frozen) and train-time noise of scale ``std``."""
+
+    def __init__(self, in_channels, feape=0, hidden_w=64, num_layers=1,
+                 initializer="xavier_sigmoid", lr=1e-3, start_roughness=0.35,
+                 tint_bias=0.0, diffuse_bias=-0.619, diffuse_mul=1.5,
+                 roughness_bias=-1.0, f0_bias=0.0, roughness_cfg=None,
+                 generator=None):
+        super().__init__()
+        self.feape = int(feape)
+        in_mlpC = 2 * max(self.feape, 0) * in_channels + in_channels
+        rc = roughness_cfg or {"hidden_w": hidden_w,
+                               "num_layers": num_layers}
+
+        def mlp(out, hw, nl):
+            return MLP(in_mlpC, out, num_layers=nl, hidden_w=hw,
+                       generator=generator, initializer=initializer)
+
+        self.diffuse_mlp = mlp(3, hidden_w, num_layers)
+        self.tint_mlp = mlp(3, hidden_w, num_layers)
+        self.f0_mlp = mlp(3, hidden_w, num_layers)
+        self.roughness_mlp = mlp(2, rc["hidden_w"], rc["num_layers"])
+        self.diffuse_bias = nn.Parameter(torch.tensor(float(diffuse_bias)))
+        self.roughness_bias = nn.Parameter(
+            torch.tensor(float(roughness_bias)))
+        self.tint_bias = float(tint_bias)
+        self.f0_bias = float(f0_bias)
+        self.diffuse_mul = float(diffuse_mul)
+        self.start_roughness = float(start_roughness)
+        self.lr = float(lr)
+
+    def forward(self, pts, viewdirs, features, std=0.0, draws=None):
+        """-> (albedo (M, 3), tint (M, 3), matprop). With ``draws``, the
+        normal draws ``diffuse_noise`` (M, 3) and ``roughness_noise`` (M, 2)
+        times ``std`` perturb albedo and roughness."""
+        indata = [features]
+        if self.feape > 0:
+            indata.append(positional_encoding(features, self.feape))
+        mlp_in = torch.cat(indata, dim=-1)
+        diffuse = torch.sigmoid(self.diffuse_mul * self.diffuse_mlp(mlp_in)
+                                + self.diffuse_bias)
+        r = torch.sigmoid(self.roughness_mlp(mlp_in)
+                          + self.roughness_bias) / 2
+        if draws is not None:
+            dev = features.device
+            diffuse = torch.clamp(
+                diffuse + draws.normal("diffuse_noise", diffuse.shape, dev)
+                * std, 0, 1)
+            r = r + draws.normal("roughness_noise", r.shape, dev) * std / 2
+        r = torch.clamp(r, 1e-2, 1.0)
+        tint = torch.sigmoid(self.tint_mlp(mlp_in) + self.tint_bias)
+        f0 = torch.sigmoid(self.f0_mlp(mlp_in) + self.f0_bias)
+        matprop = {"diffuse": diffuse, "r1": r[..., 0:1], "r2": r[..., 1:2],
+                   "f0": f0, "tint": tint}
+        return diffuse, tint, matprop
+
+    @torch.no_grad()
+    def calibrate(self, mean_brightness, conserve_energy, pts, viewdirs,
+                  features):
+        """Shift the diffuse and roughness biases so the initial albedo
+        and roughness hit their targets."""
+        diffuse, _, extra = self(pts, viewdirs, features)
+        diffuse_v = float(inv_sigmoid(diffuse).mean())
+        v = (0.5 if conserve_energy else 0.25) / float(mean_brightness)
+        v = min(max(v, 1e-4), 1 - 1e-4)
+        self.diffuse_bias.add_(math.log(v / (1 - v)) - diffuse_v)
+        roughness = (extra["r1"] + extra["r2"]) / 2 / 2
+        roughness_v = float(inv_sigmoid(roughness).mean())
+        sr = self.start_roughness
+        self.roughness_bias.add_(math.log(sr / (1 - sr)) - roughness_v)

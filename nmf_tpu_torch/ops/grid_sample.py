@@ -7,8 +7,12 @@ the last array dimension.
 The field's queries use ``quad_gather_2d`` and ``line_interp``: one table
 row per sample carries every corner it interpolates (the 2x2 neighbourhood
 of a plane, the 2 neighbours on a line), gathered by ``TakeRows``, whose
-backward is the row scatter-add kernel ``binsum_rows``.
+backward is the row scatter-add kernel ``binsum_rows``. The field's normals
+come from planes and lines filtered by ``smoothed_derivative_kernels_2d``
+with ``conv2d_same`` / ``conv1d_same`` (zero-padded correlations, in f32
+on the card: cuDNN's TF32 is off for them).
 """
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -200,6 +204,79 @@ def resize_align_corners_2d(plane, new_hw):
 def resize_align_corners_1d(line, new_l):
     xs = torch.linspace(-1.0, 1.0, new_l, device=line.device)
     return torch.movedim(grid_sample_1d(line, xs), -1, 0)
+
+
+def _convolve2d_full(a, b):
+    """Full 2D convolution of two small numpy arrays."""
+    out = np.zeros((a.shape[0] + b.shape[0] - 1, a.shape[1] + b.shape[1] - 1))
+    for i in range(b.shape[0]):
+        for j in range(b.shape[1]):
+            out[i:i + a.shape[0], j:j + a.shape[1]] += b[i, j] * a
+    return out
+
+
+def smoothed_derivative_kernels_2d(smoothing: float = 1.0):
+    """(kx, ky) 5x5 numpy correlation kernels, [row, col]: a normalized 3x3
+    gaussian (std ``smoothing``) convolved with the central difference
+    -[1, 0, -1] / 2 along the columns (kx) or the rows (ky)."""
+    f_blur = np.array([0.0, 1.0, 0.0])
+    f_edge = -np.array([1.0, 0.0, -1.0]) / 2.0
+    n = np.arange(3) - 1.0
+    g1 = np.exp(-(n ** 2) / (2 * (smoothing + 1e-8) ** 2))
+    g2 = np.outer(g1, g1)
+    g2 = g2 / g2.sum()
+    return (_convolve2d_full(g2, np.outer(f_blur, f_edge)),
+            _convolve2d_full(g2, np.outer(f_edge, f_blur)))
+
+
+def _correlate(x, w):
+    """Depthwise 'same' correlation of (C, *S) with w (1, 1, *k), k odd,
+    zero padding, with cuDNN's TF32 off: in f32 on the card, as nmf_tpu
+    filters (cuDNN rounds f32 convolutions to TF32 by default)."""
+    conv = F.conv2d if w.dim() == 4 else F.conv1d
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return conv(x[:, None], w, padding=w.shape[-1] // 2)[:, 0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class SameCorrelation(torch.autograd.Function):
+    """``_correlate`` whose backward is the correlation with the flipped
+    kernel (its adjoint for odd k), so the backward is f32 too. The kernel
+    takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        if w.shape[-1] % 2 == 0:
+            raise ValueError(f"'same' correlation needs an odd kernel, got "
+                             f"{tuple(w.shape[2:])}")
+        ctx.save_for_backward(w)
+        return _correlate(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return _correlate(g.contiguous(),
+                          w.flip(tuple(range(2, w.dim())))), None
+
+
+def conv2d_same(plane, kern):
+    """Depthwise 'same' correlation of (C, H, W) with a (k, k) kernel, zero
+    padding."""
+    k = kern.shape[0]
+    w = torch.as_tensor(kern, dtype=plane.dtype,
+                        device=plane.device).reshape(1, 1, k, k)
+    return SameCorrelation.apply(plane, w)
+
+
+def conv1d_same(line, kern):
+    """Depthwise 'same' correlation of (C, L) with a (k,) kernel."""
+    k = kern.shape[0]
+    w = torch.as_tensor(kern, dtype=line.dtype,
+                        device=line.device).reshape(1, 1, k)
+    return SameCorrelation.apply(line, w)
 
 
 def max_pool_3d(vol, ks: int = 3):

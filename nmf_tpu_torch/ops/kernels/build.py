@@ -7,6 +7,7 @@ source and the flags, so an edited source never loads a stale build. All
 sources compile together, one ``nvcc`` process each. Nothing here runs at
 import time: the CPU tests import every module and have no ``nvcc``.
 """
+import collections
 import ctypes
 import hashlib
 import os
@@ -94,6 +95,8 @@ class CudaKernel:
 
     ``launches`` counts the calls that launched the kernel: a run can set it
     to 0, drive a path, and read whether the path went through the kernel.
+    ``launches_by_size`` counts them by the launch's size arguments (those
+    that are not pointers), in argument order.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
@@ -101,6 +104,9 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.launches_by_size = collections.Counter()
+        self._sizes = [i for i, t in enumerate(self.argtypes)
+                       if t is not ctypes.c_void_p]
         self._fn = None
 
     def __call__(self, *args):
@@ -114,6 +120,7 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol}: kernel launch failed with cudaError {err}")
         self.launches += 1
+        self.launches_by_size[tuple(args[i] for i in self._sizes)] += 1
 
 
 def ptr(t):

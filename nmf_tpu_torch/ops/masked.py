@@ -1,10 +1,14 @@
 """Static-shape masked ops (``nmf_tpu/ops/masked.py``): transmittance,
-masked reductions, fixed-K compaction.
+masked reductions, fixed-K compaction, segment sums and row gathers.
 
 ``raw2alpha`` is the plain version of the composite kernel
-(``ops/kernels/composite.py``); the renderer goes through the kernel.
+(``ops/kernels/composite.py``); the renderer goes through the kernel. The
+segment sums and the backward of the row gathers go through the row
+scatter-add kernel ``binsum_rows``.
 """
 import torch
+
+from .kernels.binsum import binsum_rows
 
 
 def raw2alpha(sigma, dist):
@@ -42,3 +46,40 @@ def gather_rows(x, idx):
     """x: (B, N, ...) gathered at idx: (B, k) -> (B, k, ...)."""
     idx_e = idx.reshape(idx.shape + (1,) * (x.ndim - 2))
     return torch.gather(x, 1, idx_e.expand(idx.shape + x.shape[2:]))
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Row scatter-add through ``binsum_rows`` (ids out of range dropped);
+    the backward is the row gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, vals, ids, num_segments):
+        ctx.save_for_backward(ids)
+        ctx.num_segments = num_segments
+        return binsum_rows(ids, vals, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        n = ctx.num_segments
+        keep = ((ids >= 0) & (ids < n))[:, None]
+        dv = g.index_select(0, ids.clamp(0, n - 1).long())
+        return torch.where(keep, dv, torch.zeros_like(dv)), None, None
+
+
+def segment_sum_to(values, seg_ids, valid, num_segments: int):
+    """Sum the valid rows of values (R, D) f32 into (num_segments, D) by
+    segment id (R,). Invalid rows are parked at an out-of-range id, which
+    the kernel drops."""
+    vals = torch.where(valid[:, None], values, torch.zeros_like(values))
+    ids = torch.where(valid, seg_ids, torch.full_like(seg_ids, num_segments))
+    return _SegmentSum.apply(vals.contiguous(), ids.to(torch.int32),
+                             num_segments)
+
+
+def take_rows_binsum(x, idx):
+    """``x[idx]`` along axis 0 whose backward scatter-add is ``binsum_rows``
+    (``ops/grid_sample.TakeRows``)."""
+    from .grid_sample import TakeRows
+
+    return TakeRows.apply(x, idx.to(torch.int32))

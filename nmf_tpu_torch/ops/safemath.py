@@ -1,13 +1,64 @@
 """Numerically armored math primitives (``nmf_tpu/ops/safemath.py``):
-the subset the tensorf slice uses."""
+the subset the tensorf and microfacet slices use."""
+import math
+
 import torch
 
 EPS = float(torch.finfo(torch.float32).eps)
+SAFE_TRIG_T = 100.0 * math.pi
 
 
 def normalize(v, eps=EPS):
     """L2-normalize along the last axis."""
     return v * torch.rsqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=eps))
+
+
+def signed_clip(v, eps=EPS):
+    return torch.sign(v) * torch.clamp(v.abs(), min=eps)
+
+
+def inv_sigmoid(v):
+    return torch.log(v / (1.0 - v))
+
+
+def inv_activation(a, activation: str):
+    """Inverse of the exp / sigmoid activations; python floats stay
+    python floats."""
+    if activation == "exp":
+        return math.log(a) if isinstance(a, float) else torch.log(a)
+    if activation == "sigmoid":
+        return (math.log(a / (1 - a)) if isinstance(a, float)
+                else inv_sigmoid(a))
+    raise ValueError(f"inv_activation does not support {activation}")
+
+
+class _SafeAtan2(torch.autograd.Function):
+    """atan2 whose backward clamps the denominator (the custom VJP of
+    nmf_tpu's ``safe_atan2``): d/dx = y / (x^2 + y^2 + 1e-5),
+    d/dy = -x / (x^2 + y^2 + 1e-5)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return torch.atan2(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        denom = x * x + y * y + 1e-5
+        return g * y / denom, g * (-x) / denom
+
+
+def safe_atan2(x, y):
+    return _SafeAtan2.apply(x, y)
+
+
+def safe_cos(x, t=SAFE_TRIG_T):
+    return torch.cos(torch.remainder(x, t))
+
+
+def safe_sin(x, t=SAFE_TRIG_T):
+    return torch.sin(torch.remainder(x, t))
 
 
 def positional_encoding(positions, freqs: int):

@@ -1,36 +1,54 @@
 """Volume renderer: the composition root ``NMF`` and ``render``
-(``nmf_tpu/render.py``) at recursion depth 0.
+(``nmf_tpu/render.py``).
 
 Samples stay in a padded (B, K) layout with a validity mask. The
 transmittance weights go through the composite CUDA kernel
-(``ops/kernels/composite.transmittance_weights``) on the card.
+(``ops/kernels/composite.transmittance_weights``) on the card: for the
+proposal pass (forward only), the primary pass and every retrace pass.
 
-Not in this slice: proposal resampling, ``merge_runs``, two-stage shading
-(``app_samples_per_ray``), ray recursion, background modules and normal
-modules; a configuration asking for them raises ``NotImplementedError``.
+A pass optionally runs a no-gradient proposal density over the full march
+and resamples a smaller weight-proportional fine set; the field query gives
+normals when the shading model needs them; the shading model may call back
+into ``render`` one recursion level deeper for its retraced bounce rays,
+whose sample positions keep their gradient to the bounce directions. The
+background is a constant colour or, for a retrace pass, the envmap.
+
+Not ported yet: ``merge_runs``, two-stage shading
+(``app_samples_per_ray``), normal modules, ground-truth normals and
+``detach_inter``; a configuration asking for them raises
+``NotImplementedError`` when built.
 """
 import torch
 import torch.nn as nn
 
+from .ops.draws import Draws
 from .ops.kernels.composite import transmittance_weights
 from .ops.losses import distortion_loss
 from .ops.masked import row_mask_sum
+from .ops.resample import resample_pdf
 from .ops.tonemap import srgb_tonemap
 
 
 class NMF(nn.Module):
-    """Field + sampler + shading model."""
+    """Field + sampler + shading model (+ envmap)."""
 
-    def __init__(self, rf, sampler, model, max_samples_per_ray=-1,
-                 eval_batch_size=4096, lr_scale=1.0):
+    def __init__(self, rf, sampler, model, bg_module=None,
+                 max_samples_per_ray=-1, recur_samples_per_ray=-1,
+                 proposal_samples_per_ray=-1, proposal_pad=0.01,
+                 recur_stepmul=1.0, eval_batch_size=4096, lr_scale=1.0):
         super().__init__()
         self.rf = rf
         self.sampler = sampler
         self.model = model
+        self.bg_module = bg_module
         # nmf_tpu's predicted/geometric normal blend; 0 without a normal
         # module (kept so its state dict maps one to one)
         self.register_buffer("predicted_normal_lambda", torch.zeros(()))
         self.max_samples_per_ray = int(max_samples_per_ray)
+        self.recur_samples_per_ray = int(recur_samples_per_ray)
+        self.proposal_samples_per_ray = int(proposal_samples_per_ray)
+        self.proposal_pad = float(proposal_pad)
+        self.recur_stepmul = float(recur_stepmul)
         self.eval_batch_size = int(eval_batch_size)
         self.lr_scale = float(lr_scale)
 
@@ -47,49 +65,145 @@ class NMF(nn.Module):
         return changed
 
 
+def render_just_bg(nmf: NMF, viewdirs, mipval, bg_cache=None):
+    return nmf.bg_module(viewdirs, mipval, cache=bg_cache).reshape(-1, 3)
+
+
+def reflection_fn(nmf: NMF, is_train, recur, bg_cache, thin_out):
+    """The shading model's light source for its bounce rays (T, 6) with
+    their mip levels (T,): with ``retrace``, a ``render`` one level deeper
+    (envmap background, no tonemap) -> (rgb, 1 - acc); else the envmap ->
+    (rgb, None). A retrace pass's thinning factor goes to ``thin_out``."""
+
+    def render_reflection(bounce_rays, mipval, retrace, draws):
+        if not retrace:
+            return render_just_bg(nmf, bounce_rays[:, 3:6], mipval,
+                                  bg_cache), None
+        ims, stats = render(
+            nmf, bounce_rays, is_train=is_train, bg_col=None, draws=draws,
+            recur=recur + 1, override_near=3 * nmf.sampler.stepsize,
+            stepmul=nmf.recur_stepmul, tonemap=False, start_mipval=mipval,
+            bg_cache=bg_cache)
+        if "thin_scale" in stats:
+            thin_out.append(stats["thin_scale"])
+        return ims["rgb_map"], 1 - ims["acc_map"]
+
+    return render_reflection
+
+
 def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
-           jitter=None, generator=None, draw_debug=False):
+           draws=None, recur=0, override_near=None, stepmul=1.0,
+           tonemap=True, start_mipval=None, draw_debug=False, bg_cache=None):
     """Render a ray batch (B, 6) -> (images, stats).
 
     images: rgb_map (B, 3), acc_map (B,) and, with ``draw_debug``, depth
-    (B,). stats: distortion_loss and n_valid_samples. Training marches are
-    jittered by ``jitter`` (B, N) U[0, 1) draws or by draws from
-    ``generator``.
-    """
-    B = rays.shape[0]
-    samp = nmf.sampler.sample(rays, is_train=is_train, jitter=jitter,
-                              generator=generator,
-                              max_samples_per_ray=nmf.max_samples_per_ray)
-    # primary sample positions depend on the rays only
-    xyz = samp["xyz"].detach()
-    z_vals = samp["z_vals"].detach()
-    dists = samp["dists"].detach()
-    valid = samp["valid"]
-    K = xyz.shape[1]
+    (B,). stats (recursion level 0): ori_loss, distortion_loss,
+    envmap_reg, brdf_reg, diffuse_reg, n_valid_samples and, for microfacet
+    shading, thin_scale (and thin_scale_retrace). ``bg_col`` None takes the
+    background from the envmap.
 
-    sigma, app_features, _ = nmf.rf.compute_all(xyz.reshape(-1, 4),
-                                                with_normals=False)
+    Random draws (the march jitter, the resampling offsets, the shading
+    model's) come from ``draws`` (``ops/draws.py``); a pass without any
+    needs none.
+    """
+    draws = Draws() if draws is None else draws
+    B = rays.shape[0]
+    dev = rays.device
+    K = nmf.max_samples_per_ray if recur == 0 else nmf.recur_samples_per_ray
+    march = None
+    if is_train:
+        march = draws.uniform("jitter", (B, nmf.sampler.n_steps(stepmul)),
+                              dev)
+    samp = nmf.sampler.sample(rays, is_train=is_train, jitter=march,
+                              max_samples_per_ray=K,
+                              override_near=override_near, stepmul=stepmul)
+    xyz, z_vals, dists = samp["xyz"], samp["z_vals"], samp["dists"]
+    valid = samp["valid"]
+    if recur == 0:
+        # primary sample positions depend on the rays only
+        xyz, z_vals, dists = xyz.detach(), z_vals.detach(), dists.detach()
+    K = xyz.shape[1]
+    rf = nmf.rf
+
+    kf = nmf.proposal_samples_per_ray if recur == 0 else -1
+    if 0 < kf < K:
+        # proposal: density without gradient over the whole march, then a
+        # weight-proportional fine set of kf samples
+        with torch.no_grad():
+            sigma_p = rf.compute_densityfeature(
+                xyz.reshape(-1, 4), use_gather_dtype=True).reshape(B, K)
+            sigma_p = torch.where(valid, sigma_p, torch.zeros_like(sigma_p))
+            w_p = transmittance_weights(sigma_p, dists * rf.distance_scale)
+            z_vals, dists, valid = resample_pdf(
+                draws, z_vals, dists, w_p, valid, kf, is_train,
+                nmf.proposal_pad)
+            pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z_vals[..., None]
+            xyz = torch.cat([pts, z_vals[..., None]], dim=-1)
+        K = kf
+
+    sigma, app_features, world_normal = rf.compute_all(
+        xyz.reshape(-1, 4), with_normals=nmf.model.needs_normals(recur))
     sigma = torch.where(valid, sigma.reshape(B, K), sigma.new_zeros(()))
-    weight = transmittance_weights(sigma, dists * nmf.rf.distance_scale)
+    weight = transmittance_weights(sigma, dists * rf.distance_scale)
     acc_map = weight.sum(dim=1)
 
     xyz_flat = xyz.reshape(-1, 4)
-    xyz_normed = nmf.rf.normalize_coord(xyz_flat)
+    valid_flat = valid.reshape(-1)
+    xyz_normed = rf.normalize_coord(xyz_flat)
     viewdirs = rays[:, None, 3:6].expand(B, K, 3).reshape(-1, 3)
-    rgb, _ = nmf.model.shade(xyz_flat, xyz_normed, app_features, viewdirs,
-                             None, weight.reshape(-1), valid.reshape(-1), B)
+
+    retrace_thin = []
+    rgb, debug = nmf.model.shade(
+        xyz_flat, xyz_normed, app_features, viewdirs, world_normal,
+        weight.reshape(-1), valid_flat, B,
+        render_reflection=reflection_fn(nmf, is_train, recur, bg_cache,
+                                        retrace_thin),
+        bg_module=nmf.bg_module, bg_cache=bg_cache, is_train=is_train,
+        recur=recur, draws=draws.scoped("shade"))
     rgb_map = row_mask_sum(weight[..., None] * rgb.reshape(B, K, 3), valid)
 
-    bg = torch.as_tensor(bg_col, dtype=torch.float32,
-                         device=rays.device).reshape(1, 3)
-    stats = {
-        "distortion_loss": distortion_loss(z_vals, weight, dists),
-        "n_valid_samples": valid.sum(),
-    }
+    stats = {}
+    if "__thin_scale" in debug:
+        stats["thin_scale"] = debug["__thin_scale"]
+        if retrace_thin:
+            stats["thin_scale_retrace"] = retrace_thin[0]
+
+    if nmf.bg_module is not None and bg_col is None:
+        bg_mip = (torch.full((B,), -100.0, device=dev) if start_mipval is None
+                  else start_mipval.reshape(-1))
+        bg = render_just_bg(nmf, rays[:, 3:6], bg_mip, bg_cache)
+        if tonemap:
+            bg = srgb_tonemap(bg, noclip=True)
+    else:
+        bg = torch.as_tensor((0.0, 0.0, 0.0) if bg_col is None else bg_col,
+                             dtype=torch.float32, device=dev).reshape(1, 3)
+
+    if recur == 0:
+        flat_w = weight.reshape(-1)
+        aweight = torch.where(valid_flat, flat_w, torch.zeros_like(flat_w))
+        zero = weight.new_zeros(())
+        ori = zero
+        if world_normal is not None:
+            ndotv = (-viewdirs.detach() * world_normal).sum(-1)
+            ori = (aweight * torch.clamp(ndotv, max=0) ** 2).sum()
+        stats.update({
+            "ori_loss": ori,
+            "envmap_reg": (torch.clamp(
+                nmf.bg_module.mean_color().mean() - 0.05, min=0)
+                if nmf.bg_module is not None else zero),
+            "brdf_reg": (torch.clamp(debug["tint"].mean(), min=0)
+                         if "tint" in debug else zero),
+            "diffuse_reg": ((aweight.detach()[:, None]
+                             * debug["diffuse"]).sum() / 3
+                            if "diffuse" in debug else zero),
+            "distortion_loss": distortion_loss(z_vals, weight, dists),
+            "n_valid_samples": valid.sum(),
+        })
     images = {}
     if draw_debug:
         images["depth"] = (weight * z_vals).sum(dim=1)
-    rgb_map = srgb_tonemap(rgb_map)
+    if tonemap:
+        rgb_map = srgb_tonemap(rgb_map)
     images["rgb_map"] = rgb_map + (1 - acc_map[..., None]) * bg
     images["acc_map"] = acc_map
     return images, stats

@@ -142,17 +142,26 @@ class AlphaGridSampler(nn.Module):
         return self.aabb.clone()
 
     # ------------------------------------------------------------------
-    def sample(self, rays, is_train=False, jitter=None, generator=None,
-               max_samples_per_ray: int = -1):
+    def n_steps(self, stepmul: float = 1.0) -> int:
+        """March steps N of a pass with step multiplier ``stepmul``."""
+        return int(self.n_samples * stepmul)
+
+    def sample(self, rays, is_train=False, jitter=None,
+               max_samples_per_ray: int = -1, override_near=None,
+               stepmul: float = 1.0):
         """rays: (B, 6) -> dict of xyz (B, K, 4) (world position + footprint
         z / focal, with focal 1 as every render of nmf_tpu passes), z_vals
         (B, K), dists (B, K), valid (B, K) bool.
 
-        In training the march is jittered by U[0, 1) draws of shape (B, N):
-        ``jitter`` if given, else drawn from ``generator``.
+        In training the march is jittered by ``jitter``, U[0, 1) draws of
+        shape (B, N). A retrace pass
+        starts at ``override_near`` and marches N * stepmul steps of
+        stepsize / stepmul; its samples keep their gradient to the rays.
         """
-        N = self.n_samples
+        N = self.n_steps(stepmul)
         near, far = self.near_far
+        if override_near is not None:
+            near = override_near
         rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
         B = rays.shape[0]
         dev = rays.device
@@ -162,10 +171,8 @@ class AlphaGridSampler(nn.Module):
         rate_b = (self.aabb[0] - rays_o) / vec
         t_min = torch.clamp(torch.minimum(rate_a, rate_b).amax(-1), near, far)
 
-        stepsize = self.stepsize
+        stepsize = self.stepsize / stepmul
         if is_train:
-            if jitter is None:
-                jitter = torch.rand((B, N), generator=generator, device=dev)
             step = torch.cumsum(jitter * stepsize + stepsize / 2, dim=1)
         else:
             step = stepsize * torch.arange(N, dtype=torch.float32,

@@ -1,15 +1,19 @@
 #!/usr/bin/env python
-"""Where the time of a full-width model=tensorf train step goes, on the card.
+"""Where the time of a full-width train step goes, on the card.
 
-    python -m nmf_tpu_torch.scripts.profile_step [--steps 10] [overrides...]
+    python -m nmf_tpu_torch.scripts.profile_step [--steps 10] \
+        [model=microfacet_tensorf2] [overrides...]
 
-Trains model=tensorf on synthetic_sphere at the shipped widths with the
-chip_smoke schedule (alpha-mask rebuilds at 100 and 200, upsample to 300^3
-at 150) and profiles ``--steps`` steps at two points: after the first mask
-rebuild (128^3 grid) and after the upsample and second rebuild (300^3).
-For each window it prints the step time (CUDA events, profiler off), the
-device-busy share of the profiled window, and the kernels ranked by device
-time per step, grouped into classes. Needs a CUDA device.
+Trains on synthetic_sphere at the shipped widths with chip_smoke.py's
+schedule and profiles ``--steps`` steps at two points. model=tensorf (the
+default): alpha-mask rebuilds at 100 and 200, upsample to 300^3 at 150;
+windows after the first rebuild (128^3 grid) and after the upsample and
+the second rebuild (300^3). model=microfacet_tensorf2: upsample at 300, no
+mask rebuild; windows at 150 (128^3) and 450 (300^3). For each window it
+prints the step time (CUDA events, profiler off), the device-busy share of
+the profiled window, and the kernels ranked by device time per step,
+grouped into classes (composite K1 and K2 and binsum K3 apart). Needs a
+CUDA device.
 """
 import argparse
 import subprocess
@@ -23,10 +27,23 @@ from torch.profiler import ProfilerActivity, profile
 from .. import config, trainer
 from ..builders import build_nmf
 from ..data import load_dataset
-from ..train import make_loss_weights, make_optimizer
+from ..ops.draws import Draws
+from ..train import (BatchController, calibrate_model, make_loss_weights,
+                     make_optimizer)
+
+# model -> (schedule overrides, profiled iterations)
+SCHEDULES = {
+    "tensorf": (["model.params.n_iters=300", "field.upsamp_list=[150]",
+                 "model.arch.sampler.update_list=[100,200]"], (110, 220)),
+    "microfacet_tensorf2": (["model.params.n_iters=600",
+                             "field.upsamp_list=[300]",
+                             "model.arch.sampler.update_list=[]"],
+                            (150, 450)),
+}
 
 # kernel-name substrings -> class, first match wins
-CLASSES = (("binsum", "binsum (K3)"), ("composite", "composite (K1/K2)"),
+CLASSES = (("binsum", "binsum (K3)"), ("composite_fwd", "composite (K1)"),
+           ("composite_bwd", "composite (K2)"),
            ("gemm", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
            ("sort", "sort"), ("index", "gather/index"),
            ("gather", "gather/index"), ("scatter", "gather/index"),
@@ -95,48 +112,55 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("profile_step: needs a CUDA device")
     dev = torch.device("cuda")
-    cfg = config.compose([
-        "model=tensorf", "dataset=synthetic_sphere", "device=cuda",
-        "model.params.n_iters=300", "field.upsamp_list=[150]",
-        "model.arch.sampler.update_list=[100,200]", *overrides])
+    model = next((o.split("=", 1)[1] for o in overrides
+                  if o.startswith("model=")), "tensorf")
+    schedule, windows = SCHEDULES[model]
+    cfg = config.compose([f"model={model}", "dataset=synthetic_sphere",
+                          "device=cuda", *schedule, *overrides])
     params = cfg["model"]["params"]
     ds = load_dataset(cfg["dataset"], None, "train")
     nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
                     tuple(cfg["dataset"]["near_far"]), device=dev)
+    draws = Draws(torch.Generator(device=dev).manual_seed(0))
+    calibrate_model(nmf, draws.scoped("calibrate"))
     n_iters = int(params["n_iters"])
     opt = make_optimizer(nmf, params, n_iters)
     rays_all = torch.from_numpy(ds["all_rays"]).to(dev)
     rgb_all = torch.from_numpy(ds["all_rgbs"]).to(dev)
-    batch = int(params["batch_size"])
-    ids = trainer.SimpleSampler(rays_all.shape[0], batch, seed=0)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = BatchController(params)
+    ids = trainer.SimpleSampler(rays_all.shape[0], batch.size, seed=0)
     state = {"l1_rest": False}
 
     def step():
-        b = torch.from_numpy(ids.nextids()).to(dev)
+        b = torch.from_numpy(ids.nextids(batch.size)).to(dev)
         return trainer.train_step(nmf, opt, rays_all[b], rgb_all[b],
                                   (1.0, 1.0, 1.0),
                                   make_loss_weights(params,
                                                     state["l1_rest"]),
-                                  generator=gen)
+                                  draws=draws)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi or torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    for it in range(221):
+    for it in range(max(windows) + 1):
         metrics = step()
-        if it in (110, 220):
+        batch.after_step(it, metrics["n_valid_samples"])
+        if it in windows:
             grid = "x".join(str(g) for g in nmf.rf.grid_size)
-            valid = float(metrics["n_valid_samples"]) / batch
-            report(f"iteration {it}, grid {grid}, "
-                   f"N={nmf.sampler.n_samples} K={nmf.max_samples_per_ray}, "
-                   f"{valid:.1f} valid samples/ray",
-                   *profile_window(step, args.steps))
+            valid = float(metrics["n_valid_samples"]) / batch.size
+            thin = "".join(f", {k} {float(metrics[k]):.3f}" for k in
+                           ("thin_scale", "thin_scale_retrace")
+                           if k in metrics)
+            report(f"{model} iteration {it}, grid {grid}, batch "
+                   f"{batch.size}, N={nmf.sampler.n_samples} "
+                   f"K={nmf.max_samples_per_ray}, {valid:.1f} valid "
+                   f"samples/ray{thin}", *profile_window(step, args.steps))
         if nmf.check_schedule(it + 1):
             opt = make_optimizer(nmf, params, n_iters)
             state["l1_rest"] = True
+            batch.reset()
 
 
 if __name__ == "__main__":

@@ -85,18 +85,31 @@ class OptimConfig(NamedTuple):
 
 
 def group_lrs(nmf: NMF):
-    """Learning rate of each group, from the module definitions."""
+    """Learning rate of each group, from the module definitions. Every
+    group shares the optimizer's betas (nmf_tpu's fused optimizer); the one
+    group with other betas, bg_mul, has learning rate 0 in the shipped
+    configs."""
     s = nmf.lr_scale
-    return {"rf_grid": nmf.rf.lr * s, "rf_net": nmf.rf.lr_net * s,
-            "diffuse": nmf.model.diffuse_module.lr * s, "frozen": 0.0}
+    lrs = {"rf_grid": nmf.rf.lr * s, "rf_net": nmf.rf.lr_net * s,
+           "diffuse": nmf.model.diffuse_module.lr * s, "frozen": 0.0}
+    brdf = getattr(nmf.model, "brdf", None)
+    if brdf is not None:
+        lrs["brdf"] = brdf.lr * s
+    bg = nmf.bg_module
+    if bg is not None:
+        lrs.update(bg=bg.lr * s, bg_mipbias=bg.mipbias_lr * s,
+                   bg_brightness=bg.brightness_lr * s, bg_mul=bg.mul_lr * s)
+    return lrs
 
 
 def differentiated_tensors(nmf: NMF):
     """(path, tensor, label) of every tensor the train step differentiates:
-    the parameters and the field's box (frozen)."""
+    the parameters and the field's and the sampler's boxes (frozen; the
+    sampler's box takes a gradient through the retrace pass)."""
     out = [(name.replace(".", "/"), p, label_for_path(name.replace(".", "/")))
            for name, p in nmf.named_parameters()]
     out.append(("rf/aabb", nmf.rf.aabb, "frozen"))
+    out.append(("sampler/aabb", nmf.sampler.aabb, "frozen"))
     return out
 
 
@@ -155,46 +168,64 @@ class Optimizer:
 
 
 class LossWeights(NamedTuple):
-    """Per-iteration loss weights (nmf_tpu's LossWeights). Terms that the
-    tensorf slice computes as exact zeros (normal, envmap, BRDF and
-    visibility terms) are not computed."""
+    """Per-iteration loss weights (nmf_tpu's LossWeights). The prediction,
+    normal-error and visibility terms are exact zeros without a normal or
+    visibility module (not in the ported slices) and are not computed."""
     distortion_lambda: float = 0.0
     l1_weight: float = 8e-5
     ortho_weight: float = 0.0
     tv_weight_density: float = 0.0
     tv_weight_app: float = 0.0
+    ori_lambda: float = 0.0
+    envmap_lambda: float = 0.0
+    diffuse_lambda: float = 0.0
+    brdf_lambda: float = 0.0
+
+
+# loss weight -> render stat it scales
+_STAT_TERMS = (("distortion_lambda", "distortion_loss"),
+               ("ori_lambda", "ori_loss"), ("envmap_lambda", "envmap_reg"),
+               ("diffuse_lambda", "diffuse_reg"), ("brdf_lambda", "brdf_reg"))
 
 
 def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
-                 jitter=None, generator=None):
-    """Photometric + regularizer loss. Returns (loss, metrics)."""
+                 draws):
+    """Photometric + regularizer loss. Returns (loss, metrics). The envmap
+    cache is built once here for the whole step."""
     for name in ("ortho_weight", "tv_weight_density", "tv_weight_app"):
         if getattr(weights, name):
             raise NotImplementedError(
-                f"{name} is not ported yet (tensorf slice)")
+                f"{name} is not ported yet (ROADMAP A.2)")
+    bg_cache = nmf.bg_module.prepare() if nmf.bg_module is not None else None
     ims, stats = render(nmf, rays, is_train=True, bg_col=bg_col,
-                        jitter=jitter, generator=generator)
+                        draws=draws,
+                        bg_cache=bg_cache)
     rgb_map = ims["rgb_map"]
     B = rays.shape[0]
     sq = (torch.clamp(rgb_map, 0, 1) - torch.clamp(rgb_gt, 0, 1)) ** 2
     total = sq.sum()
-    if weights.distortion_lambda:
-        total = total + weights.distortion_lambda * stats["distortion_loss"]
+    for weight_name, stat in _STAT_TERMS:
+        w = getattr(weights, weight_name)
+        if w:
+            total = total + w * stats[stat]
     if weights.l1_weight:
         total = total + weights.l1_weight * nmf.rf.density_L1() * B
     total = total / B
     metrics = {"loss": total.detach(), "photo_mse": sq.detach().mean(),
                "n_valid_samples": stats["n_valid_samples"]}
+    for k in ("thin_scale", "thin_scale_retrace"):
+        if k in stats:
+            metrics[k] = stats[k]
     return total, metrics
 
 
 def train_step(nmf: NMF, opt: Optimizer, rays, rgb_gt, bg_col,
-               weights: LossWeights, jitter=None, generator=None):
+               weights: LossWeights, draws):
     """One step: loss, backward, optimizer update. A non-finite loss skips
     the update (parameters and optimizer state stay as they were)."""
     opt.zero_grad()
     loss, metrics = compute_loss(nmf, rays, rgb_gt, weights, bg_col,
-                                 jitter=jitter, generator=generator)
+                                 draws=draws)
     loss.backward()
     if bool(torch.isfinite(loss.detach())):
         opt.step()

@@ -1,52 +1,47 @@
 """Carry nmf_tpu weights into the port.
 
 ``from_jax_state_dict(nmf, sd)`` takes the flat ``{path: ndarray}`` of
-``nmf_tpu.ckpt.state_dict`` (keys like ``.rf.density_rf.planes[0]`` or
-``.model.diffuse_module.mlp.layers[0]['w']``) and copies every entry into
-the port's modules through an explicit path map. MLP weights are stored
-(in, out) by nmf_tpu and (out, in) by ``nn.Linear``: they are transposed.
-A key the map does not know raises, and so does a port tensor that no key
-filled.
+``nmf_tpu.ckpt.state_dict`` (keys like ``.rf.density_rf.planes[0]``,
+``.model.brdf.mlp.layers[0]['w']`` or ``.bg_module.bg_mat``) and copies
+every entry into the port's module of the same path: an attribute per
+``.name``, a list entry per ``[i]``. MLP layers are ``{"w": (in, out),
+"b"}`` dicts in nmf_tpu and ``nn.Linear``s here: ``['w']`` is the
+transposed ``weight``, ``['b']`` the ``bias``. A key whose path the port
+lacks raises, and so does a port tensor that no key filled.
 """
 import re
 
 import numpy as np
 import torch
 
-_MLP = re.compile(r"^\.model\.diffuse_module\.mlp\.layers\[(\d+)\]\['([wb])'\]$")
-_FACTOR = re.compile(r"^\.rf\.(density_rf|app_rf)\.(planes|lines)\[(\d)\]$")
+_TOKEN = re.compile(r"\.(\w+)|\[(\d+)\]|\['(\w+)'\]")
 
 
 def port_tensor(nmf, key):
     """(tensor, transpose) of the port behind a nmf_tpu state-dict key;
     ``transpose`` says the port stores it transposed."""
-    m = _FACTOR.match(key)
-    if m:
-        fg, kind, i = m.groups()
-        return getattr(getattr(nmf.rf, fg), kind)[int(i)], False
-    m = _MLP.match(key)
-    if m:
-        layer = nmf.model.diffuse_module.mlp.layers[int(m.group(1))]
-        if m.group(2) == "w":
-            return layer.weight, True
-        return layer.bias, False
-    mask = nmf.sampler.alpha_mask
-    fixed = {
-        ".rf.basis_mat": nmf.rf.basis_mat,
-        ".rf.dbasis_mat": nmf.rf.dbasis_mat,
-        ".rf.aabb": nmf.rf.aabb,
-        ".sampler.aabb": nmf.sampler.aabb,
-        ".sampler.alpha_mask.aabb": mask.aabb,
-        ".sampler.alpha_mask.alpha_volume": mask.alpha_volume,
-        ".sampler.alpha_mask.coarse_volume": mask.coarse_volume,
-        ".predicted_normal_lambda": nmf.predicted_normal_lambda,
-    }
-    if key not in fixed:
+    obj, pos, transpose = nmf, 0, False
+    for m in _TOKEN.finditer(key):
+        if m.start() != pos:
+            break
+        pos = m.end()
+        name, index, field = m.groups()
+        try:
+            if name is not None:
+                obj = getattr(obj, name)
+            elif index is not None:
+                obj = obj[int(index)]
+            else:
+                obj = {"w": obj.weight, "b": obj.bias}[field]
+                transpose = field == "w"
+        except (AttributeError, IndexError, KeyError, TypeError):
+            obj = None
+        if obj is None:
+            break
+    if pos != len(key) or not isinstance(obj, torch.Tensor):
         raise KeyError(f"nmf_tpu state-dict key {key!r} has no counterpart "
                        "in nmf_tpu_torch")
-    if fixed[key] is None:
-        raise KeyError(f"{key}: the port has no tensor there")
-    return fixed[key], False
+    return obj, transpose
 
 
 def _port_tensors(nmf):

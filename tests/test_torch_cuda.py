@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 from nmf_tpu_torch.ops import grid_sample as tgs  # noqa: E402
 from nmf_tpu_torch.ops.kernels import binsum as tbin  # noqa: E402
 from nmf_tpu_torch.ops.kernels import composite as tcomp  # noqa: E402
-from torch_inputs import binsum_case, composite_inputs, cotangents  # noqa: E402,E501
+from torch_inputs import (FLAGSHIP, binsum_case,  # noqa: E402
+                          composite_inputs, cotangents)
 
 
 @pytest.fixture
@@ -82,7 +83,9 @@ def test_transmittance_kernel_matches_plain_on_card(cuda, shape, rays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["collisions", "runs"])
+@pytest.mark.parametrize("case", ["collisions", "runs", "flagship C=9",
+                                  "flagship C=12", "flagship C=44",
+                                  "flagship C=288"])
 def test_binsum_kernel_matches_plain_on_card(cuda, case):
     # atomics add in a varying order: rtol/atol 1e-4
     idx, vals, R = binsum_case(case)
@@ -131,3 +134,50 @@ def test_kernels_launch_on_their_tensors_device():
         torch.cuda.synchronize(dev)
     torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(s.grad, s_ref.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tiny_flagship_step_on_card_matches_cpu(cuda):
+    """One train step of the tiny flagship on the card and on the CPU, with
+    the same draws from one CPU generator: the loss, the image of an eval
+    render and every gradient. The envmap's mip bias is 12, so every
+    lookup box spans the map (small boxes carry the SAT's summation order,
+    which differs between the card's cumsum and the CPU's)."""
+    from nmf_tpu_torch import config, trainer
+    from nmf_tpu_torch.builders import build_nmf
+    from nmf_tpu_torch.data import load_dataset
+    from nmf_tpu_torch.ops.draws import Draws
+    from nmf_tpu_torch.render import render
+
+    cfg = config.compose([*FLAGSHIP, "dataset.image_size=16",
+                          "dataset.n_views=4"])
+    ds = load_dataset(cfg["dataset"], None, "train")
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
+                        tuple(cfg["dataset"]["near_far"]), seed=0,
+                        device=dev)
+        with torch.no_grad():
+            nmf.bg_module.mipbias.fill_(12.0)
+        trainer.Optimizer(nmf, trainer.OptimConfig())
+        rays = torch.from_numpy(ds["all_rays"][:64]).to(dev)
+        loss, _ = trainer.compute_loss(
+            nmf, rays, torch.from_numpy(ds["all_rgbs"][:64]).to(dev),
+            trainer.LossWeights(ori_lambda=0.1), (1.0, 1.0, 1.0),
+            draws=Draws(torch.Generator().manual_seed(1)))
+        loss.backward()
+        with torch.no_grad():
+            image = render(nmf, rays, draws=Draws(
+                torch.Generator().manual_seed(2)),
+                bg_cache=nmf.bg_module.prepare())[0]["rgb_map"]
+        runs.append((loss.detach().cpu(), image.cpu(),
+                     [t.grad.cpu() for _, t, _ in
+                      trainer.differentiated_tensors(nmf)
+                      if t.grad is not None]))
+    (l0, i0, g0), (l1, i1, g1) = runs
+    torch.testing.assert_close(l0, l1, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(i0, i1, rtol=1e-4, atol=1e-5)
+    assert len(g0) == len(g1) > 20
+    for a, b in zip(g0, g1):
+        torch.testing.assert_close(a, b, rtol=1e-3,
+                                   atol=1e-3 * float(b.abs().max()) + 1e-9)

@@ -246,6 +246,23 @@ def test_cpu_tensors_take_the_plain_versions():
             tbin.BINSUM.launches) == before
 
 
+def test_launches_are_counted_by_size():
+    # a stand-in C entry that reports success: the counts key each launch
+    # by its non-pointer arguments (binsum: N, C, R), a failed one counts
+    # nowhere
+    from nmf_tpu_torch.ops.kernels.build import CudaKernel
+
+    k = CudaKernel("binsum.cu", "binsum_rows", tbin.BINSUM.argtypes)
+    k._fn = lambda *args: 0
+    for n in (10, 10, 20):
+        k(1, 2, 3, n, 4, 7, None)
+    k._fn = lambda *args: 1
+    with pytest.raises(RuntimeError):
+        k(1, 2, 3, 30, 4, 7, None)
+    assert k.launches == 3
+    assert dict(k.launches_by_size) == {(10, 4, 7): 2, (20, 4, 7): 1}
+
+
 @pytest.mark.parametrize("case", ["collisions", "runs"])
 def test_binsum_plain_matches_pallas_and_numpy(case):
     # f32 sums in another order: rtol/atol 1e-4 as tests/test_pallas.py

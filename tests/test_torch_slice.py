@@ -26,7 +26,9 @@ from nmf_tpu_torch import train as ttrain  # noqa: E402
 from nmf_tpu_torch import trainer as ttrainer  # noqa: E402
 from nmf_tpu_torch import weights  # noqa: E402
 from nmf_tpu_torch.builders import build_nmf as tbuild  # noqa: E402
+from nmf_tpu_torch.ops.draws import Draws  # noqa: E402
 from torch_parity import AABB, NEAR_FAR, build_pair  # noqa: E402
+from torch_inputs import FLAGSHIP  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 B = 64
@@ -76,7 +78,7 @@ def test_three_train_steps_match():
         topt.zero_grad()
         tl, _ = ttrainer.compute_loss(
             tn, torch.from_numpy(rays), torch.from_numpy(rgb), tw,
-            (1.0, 1.0, 1.0), jitter=torch.from_numpy(jitter))
+            (1.0, 1.0, 1.0), Draws(None, {"jitter": jitter}))
         tl.backward()
         # f32 everywhere; sums (field scatters, MLP products) in another
         # order
@@ -176,10 +178,23 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 
 def test_unported_targets_raise():
-    cfg = ttrain.config_lib.compose(["model=microfacet_tensorf2"])
-    with pytest.raises(NotImplementedError):
-        tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+    for ov in (["model=refnerf"], ["field=hashgrid"]):
+        cfg = ttrain.config_lib.compose(ov)
+        with pytest.raises(NotImplementedError):
+            tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
     if not torch.cuda.is_available():
         cfg = ttrain.config_lib.compose(["model=tensorf"])
         with pytest.raises(RuntimeError):
             tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cuda")
+
+
+@pytest.mark.parametrize("override", [
+    "model.arch.detach_inter=true",
+    "model.arch.model.diffuse_mixing_mode=fresnel_ind",
+    "model.arch.model.diffuse_mixing_mode=lambda"])
+def test_unported_flagship_knobs_raise(override):
+    # the flagship's shipped config sets none of these; they come with a
+    # later slice
+    cfg = ttrain.config_lib.compose([*FLAGSHIP, override])
+    with pytest.raises(NotImplementedError):
+        tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")

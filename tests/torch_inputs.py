@@ -2,6 +2,19 @@
 on-card tests run where JAX is not installed)."""
 import numpy as np
 
+# the tiny flagship of __graft_entry__.py's multi-chip dry run: grid 16,
+# envmap 32 x 64, 16 samples a ray (8 after the proposal, 8 retraced),
+# bounce budgets [512, 128], 32 retrace rays; f32 gathers
+FLAGSHIP = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
+            "field.N_voxel_init=4096", "field.N_voxel_final=8000",
+            "field.upsamp_list=[]", "field.gather_dtype=f32",
+            "model.arch.max_samples_per_ray=16",
+            "model.arch.recur_samples_per_ray=8",
+            "model.arch.proposal_samples_per_ray=8",
+            "model.arch.model.brdf_ray_budget=[512,128]",
+            "model.arch.model.max_retrace_rays=[32]",
+            "model.arch.bg_module.bg_resolution=32"]
+
 
 def composite_inputs(B=37, K=16, seed=0, opaque=False):
     rng = np.random.default_rng(seed)
@@ -26,6 +39,23 @@ def cotangents(B, K, seed=1):
 
 def binsum_case(case):
     rng = np.random.default_rng(11)
+    if case.startswith("flagship"):
+        # the flagship's narrow K3 launches: runs of 1-32 bounce rays a
+        # parent sample (C = 9 segment sums, C = 44 parent gathers),
+        # scattered SAT corners (C = 12), a field plane (C = 288)
+        C = int(case.split("C=")[1])
+        if C == 12:
+            N, R = 40000, 90000
+            idx = rng.integers(0, R, N).astype(np.int32)
+        elif C == 288:
+            N, R = 30000, 4096
+            idx = np.repeat(rng.integers(0, R, N // 10), 10).astype(np.int32)
+        else:
+            N, R = 20000, 60000
+            idx = np.repeat(np.sort(rng.choice(R, N, replace=False)),
+                            rng.integers(1, 33, N))[:N].astype(np.int32)
+        idx[:50] = R + 3
+        return idx, rng.normal(size=(N, C)).astype(np.float32), R
     if case == "collisions":
         # the pattern of tests/test_pallas.py: everything piles into 7 rows
         # and 100 rows are out of range

@@ -1,5 +1,6 @@
-"""Shared helpers of the nmf_tpu_torch parity tests: a tiny model=tensorf
-built by nmf_tpu and the port's copy of it."""
+"""Shared helpers of the nmf_tpu_torch parity tests: tiny models built by
+nmf_tpu and the port's copies of them, and the replay of nmf_tpu's key
+splits as the port's named draws."""
 import jax
 import numpy as np
 
@@ -8,19 +9,97 @@ from nmf_tpu import config as jconfig
 from nmf_tpu.builders import build_nmf as jbuild
 from nmf_tpu_torch import weights
 from nmf_tpu_torch.builders import build_nmf as tbuild
+from torch_inputs import FLAGSHIP
 
 AABB = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]], np.float32)
 NEAR_FAR = (2.5, 5.5)
 
-
-def build_pair(gather="f32", extra=()):
-    """A tiny model=tensorf built by nmf_tpu, and the port's copy of it."""
-    ov = ["model=tensorf", "dataset=synthetic_sphere",
-          "field.N_voxel_init=4096", "field.N_voxel_final=8000",
-          f"field.gather_dtype={gather}",
-          "model.arch.model.diffuse_module.featureC=16", *extra]
-    cfg = jconfig.compose(ov)
+def build_pair(gather="f32", extra=(), base=None):
+    """A tiny model built by nmf_tpu, and the port's copy of it (by
+    default model=tensorf)."""
+    ov = base if base is not None else [
+        "model=tensorf", "dataset=synthetic_sphere",
+        "field.N_voxel_init=4096", "field.N_voxel_final=8000",
+        f"field.gather_dtype={gather}",
+        "model.arch.model.diffuse_module.featureC=16"]
+    cfg = jconfig.compose([*ov, *extra])
     jn = jbuild(jax.random.PRNGKey(0), cfg["model"]["arch"], AABB, NEAR_FAR)
     tn = tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
     weights.from_jax_state_dict(tn, jckpt.state_dict(jn))
     return jn, tn, cfg
+
+
+def build_flagship_pair(extra=()):
+    return build_pair(extra=extra, base=FLAGSHIP)
+
+
+def port_copy(jn, cfg):
+    """A fresh port of the nmf_tpu model ``jn`` (built from ``cfg``)."""
+    tn = tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+    return weights.from_jax_state_dict(tn, jckpt.state_dict(jn))
+
+
+def _u(key, shape):
+    return np.asarray(jax.random.uniform(key, shape))
+
+
+def _n(key, shape):
+    return np.asarray(jax.random.normal(key, shape))
+
+
+def render_draws(key, jn, B, is_train, recur=0, prefix=""):
+    """The draws of nmf_tpu's ``render(key)`` of B rays at recursion
+    ``recur``, by the port's names: render.py splits the key four ways
+    (march jitter, shade, -, proposal resampling)."""
+    keys = jax.random.split(key, 4)
+    d = {}
+    K = jn.max_samples_per_ray if recur == 0 else jn.recur_samples_per_ray
+    stepmul = 1.0 if recur == 0 else jn.recur_stepmul
+    if is_train:
+        d[prefix + "jitter"] = _u(keys[0],
+                                  (B, int(jn.sampler.n_samples * stepmul)))
+    kf = jn.proposal_samples_per_ray if recur == 0 else -1
+    if 0 < kf < K:
+        if is_train:
+            d[prefix + "resample"] = _u(keys[2], (B, kf + 1))
+        K = kf
+    d.update(shade_draws(keys[1], jn, B * K, is_train, recur,
+                         prefix + "shade/"))
+    return d
+
+
+def shade_draws(key, jn, M, is_train, recur=0, prefix=""):
+    """The draws of nmf_tpu's ``Microfacet.shade(key)`` on M samples: the
+    key splits six ways (app-feature noise, material noise, rounding,
+    Hammersley offsets, retrace tie-break and the retrace pass's key)."""
+    m = jn.model
+    ks = jax.random.split(key, 6)
+    kd, kr = jax.random.split(ks[1])
+    R = m.brdf_ray_budget[min(recur, len(m.brdf_ray_budget) - 1)]
+    k1, k2 = jax.random.split(ks[3])
+    d = {prefix + "app_noise": _n(ks[0], (M, jn.rf.app_dim)),
+         prefix + "diffuse_noise": _n(kd, (M, 3)),
+         prefix + "roughness_noise": _n(kr, (M, 2)),
+         prefix + "alloc": _u(ks[2], (M,)),
+         prefix + "offset1": _u(k1, (R,)),
+         prefix + "offset2": _u(k2, (R,))}
+    if recur < len(m.max_retrace_rays):
+        d[prefix + "tiebreak"] = _u(ks[4], (R,))
+        d.update(render_draws(ks[4], jn, m.max_retrace_rays[recur],
+                              is_train, recur + 1, prefix + "retrace/"))
+    return d
+
+
+def calibration_draws(key, n_points=10000):
+    """The draws of nmf_tpu's ``train.calibrate_model(key)``: the points,
+    the material head's view directions and the BRDF's random vectors."""
+    k1, k2 = jax.random.split(key)
+    kv, kb = jax.random.split(k2)
+    ks = jax.random.split(kb, 7)
+    d = {"xyz": _u(k1, (n_points, 4)),
+         "model/viewdirs": _u(kv, (n_points, 3)),
+         "model/brdf/eax": _u(ks[0], (n_points,)),
+         "model/brdf/eay": _u(ks[1], (n_points,))}
+    for i in range(7):
+        d[f"model/brdf/vec{i}"] = _u(ks[i], (n_points, 3))
+    return d
