@@ -13,13 +13,18 @@
    tensorf step (B = 4096 rays x K = 192 samples, weights-only and full
    mode) and the flagship's passes (4096 x 192 forward only, 4096 x 96,
    1024 x 96), held at ragged shapes (K = 1, 33, 1024); binsum (K3) at
-   every shape of both paths (``binsum_cases``: field planes and lines,
-   the flagship's bounce-ray parent gathers, segment sums, envmap SAT
-   corners and retrace rows). Device times from the profiler, L2-warm (the
-   same buffers again and again) and L2-cold (rotating over copies that
-   fill the L2 four times), are read after the main paths. Every launch of
-   a main path is counted by its sizes, and the run fails if a main path
-   launched a kernel at sizes that were not held here.
+   every shape and dtype of both paths (``binsum_cases``: field planes and
+   lines in bf16, the flagship's bounce-ray parent gathers, segment sums,
+   envmap SAT corners and retrace rows in f32), each also timed as the
+   whole call the step makes (``TakeRows.backward``: cotangent in, table-
+   dtype gradient out) beside ``zeros + index_add_`` on ``vals.float()``.
+   Device times from the profiler, L2-warm (the same buffers again and
+   again) and L2-cold (rotating over copies that fill the L2 four times),
+   are read after the main paths. Every launch of a main path is counted
+   by its sizes and dtype, and the run fails if a main path launched a
+   kernel at sizes that were not held here. K3 is also held and timed
+   L2-cold on the ids of every launch of two flagship steps (one before
+   the upsample, one after), recorded during the main path.
    Then runs one train step and one eval render of a tiny model=tensorf
    and a tiny model=microfacet_tensorf2 on the card and on the CPU (the
    plain versions) and compares the loss, the image and every gradient.
@@ -75,6 +80,13 @@ def time_ms(torch, fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def best_ms(torch, fn, repeats=3, iters=30):
+    """The least of ``repeats`` time_ms readings: a call that the host
+    launches (a wrapper, its yardstick) reads high whenever the host stalls
+    during one of them."""
+    return min(time_ms(torch, fn, iters=iters) for _ in range(repeats))
 
 
 def bound_ms(n_bytes, n_ops):
@@ -357,121 +369,249 @@ def parent_ids(torch, dev, gen, N, R):
     return torch.repeat_interleave(parents, runs)[:N]
 
 
-def binsum_inputs(torch, dev, gen, ids, R, C):
-    """(idx, vals) from ray-walk ids; 1% of the rows are out of range
-    (dropped)."""
+def binsum_inputs(torch, dev, gen, ids, R, C, dtype):
+    """(idx, vals) from ray-walk ids, vals in ``dtype``; 1% of the rows are
+    out of range (dropped)."""
     idx = ids.reshape(-1).to(torch.int32)
     out = torch.rand(idx.shape, generator=gen, device=dev) < 0.01
     idx[out] = R + 7
     vals = torch.randn((idx.numel(), C), generator=gen, device=dev)
-    return idx, vals
+    return idx, vals.to(dtype)
 
 
 def binsum_cases(torch, dev, gen):
-    """(what, R, C, ids) of every shape the two main paths launch K3 with.
+    """(what, R, C, ids, dtype, caller) of every shape the two main paths
+    launch K3 with; ``caller`` is ``TakeRows`` (a gather's backward: the
+    cotangent arrives in the table's dtype) or ``segment sum`` (f32).
 
     tensorf (six launches a step): the three planes (C = 4 x 40 quad-table
     channels) at 128^2 and, after the upsample, 300^2 texels; the three
     lines (C = 2 x 40) at 128 and 300 cells, where every id collides
-    thousands of times. The flagship (twenty a step): its field at 4096
-    rays x 96 samples and the retrace field at 1024 x 96 (planes C = 4 x
-    72, lines C = 2 x 56, before and after the upsample); the parent-gather
-    backward (C = 44) and the segment sums (C = 9) of the 65,536 and 16,384
-    bounce rays onto 393,216 and 98,304 samples; the envmap SAT corners'
-    backward (C = 12, 4 rows a lookup into the 592 x 1168 table) for the
-    65,536 and 16,384 bounce rays and the retrace rays' background; the
-    retrace rows (C = 6)."""
+    thousands of times; bf16, the field's gather dtype. The flagship
+    (twenty a step): its field at 4096 rays x 96 samples and the retrace
+    field at 1024 x 96 (planes C = 4 x 72, lines C = 2 x 56, before and
+    after the upsample; bf16); the parent-gather backward (C = 44) and the
+    segment sums (C = 9) of the 65,536 and 16,384 bounce rays onto 393,216
+    and 98,304 samples; the envmap SAT corners' backward (C = 12, 4 rows a
+    lookup into the 592 x 1168 table) for the 65,536 and 16,384 bounce rays
+    and the retrace rays' background; the retrace rows (C = 6); f32."""
+    bf16, f32 = torch.bfloat16, torch.float32
     sat = 592 * 1168
     M = FLAGSHIP_B * 96
     flagship_field = [
         (f"flagship {what}plane", n * n, 288,
-         plane_ids(torch, dev, gen, n, n, B, 96))
+         plane_ids(torch, dev, gen, n, n, B, 96), bf16, "TakeRows")
         for what, B in (("", FLAGSHIP_B), ("retrace ", 1024))
         for n in (128, 300)] + [
         (f"flagship {what}line", n, 112,
-         line_ids(torch, dev, gen, n, B, 96))
+         line_ids(torch, dev, gen, n, B, 96), bf16, "TakeRows")
         for what, B in (("", FLAGSHIP_B), ("retrace ", 1024))
         for n in (128, 300)]
     return [
         ("tensorf plane", 128 * 128, 160,
-         plane_ids(torch, dev, gen, 128, 128)),
+         plane_ids(torch, dev, gen, 128, 128), bf16, "TakeRows"),
         ("tensorf plane", 300 * 300, 160,
-         plane_ids(torch, dev, gen, 300, 300)),
-        ("tensorf line", 128, 80, line_ids(torch, dev, gen, 128)),
-        ("tensorf line", 300, 80, line_ids(torch, dev, gen, 300)),
+         plane_ids(torch, dev, gen, 300, 300), bf16, "TakeRows"),
+        ("tensorf line", 128, 80, line_ids(torch, dev, gen, 128), bf16,
+         "TakeRows"),
+        ("tensorf line", 300, 80, line_ids(torch, dev, gen, 300), bf16,
+         "TakeRows"),
         *flagship_field,
         ("flagship parent gather", M, 44,
-         parent_ids(torch, dev, gen, 65536, M)),
+         parent_ids(torch, dev, gen, 65536, M), f32, "TakeRows"),
         ("flagship retrace parent gather", 1024 * 96, 44,
-         parent_ids(torch, dev, gen, 16384, 1024 * 96)),
+         parent_ids(torch, dev, gen, 16384, 1024 * 96), f32, "TakeRows"),
         ("flagship segment sum", M, 9,
-         parent_ids(torch, dev, gen, 65536, M)),
+         parent_ids(torch, dev, gen, 65536, M), f32, "segment sum"),
         ("flagship retrace segment sum", 1024 * 96, 9,
-         parent_ids(torch, dev, gen, 16384, 1024 * 96)),
+         parent_ids(torch, dev, gen, 16384, 1024 * 96), f32, "segment sum"),
         *[(f"flagship SAT corners, {n} lookups", sat, 12,
-           torch.randint(0, sat, (4 * n,), generator=gen, device=dev))
+           torch.randint(0, sat, (4 * n,), generator=gen, device=dev), f32,
+           "TakeRows")
           for n in (65536, 16384, 1024)],
         ("flagship retrace rows", 65536, 6,
-         torch.randperm(65536, generator=gen, device=dev)[:1024]),
+         torch.randperm(65536, generator=gen, device=dev)[:1024], f32,
+         "TakeRows"),
     ]
 
 
+def binsum_tolerance(S, idx, vals, R):
+    """Atomics add in a varying order, and so does index_add_: the two f32
+    sums of a row differ by rounding that grows with the row's sum of
+    |vals| (~48 unit-scale rows meet per plane texel, ~2,600 to ~6,000 per
+    line cell): 1e-4 relative plus 1e-4 plus 1e-6 of that absolute sum."""
+    return 1e-4, 1e-4 + 1e-6 * S.binsum_rows_plain(idx, vals.abs(), R)
+
+
+def binsum_whole_call(torch, S, caller, idx_call, vals, R):
+    """What the step pays for K3, from cotangent in to gradient out, and
+    its yardstick ``zeros((R, C), f32).index_add_(0, idx, vals.float())``.
+    ``TakeRows``: its backward (the kernel on the cotangent as it comes,
+    the cast of the f32 sum back to the table's dtype) on in-range ids; a
+    segment sum: the wrapper on the ids it is given (the yardstick's
+    out-of-range rows are dropped before it is timed)."""
+    import types
+
+    from nmf_tpu_torch.ops.grid_sample import TakeRows
+
+    if caller == "TakeRows":
+        ctx = types.SimpleNamespace(saved_tensors=(idx_call,), num_rows=R)
+        call = lambda: TakeRows.backward(ctx, vals)  # noqa: E731
+        lib_idx, lib_vals = idx_call.long(), vals
+    else:
+        call = lambda: S.binsum_rows(idx_call, vals, R)  # noqa: E731
+        keep = (idx_call >= 0) & (idx_call < R)
+        lib_idx, lib_vals = idx_call[keep].long(), vals[keep]
+    return best_ms(torch, call), best_ms(torch, lambda: torch.zeros(
+        (R, vals.shape[1]), device=vals.device).index_add_(
+            0, lib_idx, lib_vals.float()))
+
+
+def binsum_bounds(vals, R, touched):
+    """The kernel's bound (ids, vals in their dtype, the rows it touches)
+    and the wrapper's (the whole (R, C) output, as its memset writes it)."""
+    N, C = vals.shape
+    return (bound_ms(4 * N + vals.nbytes + 4 * touched * C, N * C),
+            bound_ms(4 * N + vals.nbytes + 4 * R * C, N * C)[0])
+
+
 def check_binsum(torch, dev, gen, deferred):
-    """binsum_rows at every shape of ``binsum_cases``: held against its
-    plain version and timed (back to back L2-warm and L2-cold, wrapper,
-    plain, ``index_add_``; device time L2-warm and L2-cold deferred). The
-    kernels line reports the first shape; every shape is in ``shapes``."""
+    """binsum_rows at every shape of ``binsum_cases``, in the dtype the
+    step hands it: held against its plain version and timed (the C entry
+    back to back L2-warm and L2-cold, the wrapper, the whole call against
+    its ``index_add_`` yardstick, plain, ``index_add_`` on the kernel's
+    inputs, the calls the host launches as the best of three readings;
+    device time L2-warm and L2-cold deferred). The kernels line
+    reports the first shape; every shape is in ``shapes``."""
     from nmf_tpu_torch.ops.kernels import binsum as S
     from nmf_tpu_torch.ops.kernels.build import ptr
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     shapes = []
-    for what, R, C, ids in binsum_cases(torch, dev, gen):
-        idx, vals = binsum_inputs(torch, dev, gen, ids, R, C)
-        N = idx.numel()
+    for what, R, C, ids, dtype, caller in binsum_cases(torch, dev, gen):
+        idx, vals = binsum_inputs(torch, dev, gen, ids, R, C, dtype)
+        N, code = idx.numel(), S.DTYPE_CODES[dtype]
         out = S.binsum_rows(idx, vals, R)
         ref = S.binsum_rows_plain(idx, vals, R)
-        # atomics add in a varying order, and so does index_add_: the two
-        # f32 sums of a row differ by rounding that grows with the row's
-        # sum of |vals| (~48 unit-scale rows meet per plane texel, ~2,600
-        # to ~6,000 per line cell): 1e-4 relative plus 1e-4 plus 1e-6 of
-        # that absolute sum
-        abs_sum = S.binsum_rows_plain(idx, vals.abs(), R)
-        err = max_err(torch, [(out, ref)], 1e-4, 1e-4 + 1e-6 * abs_sum,
-                      f"binsum {what} R={R}")
+        rtol, atol = binsum_tolerance(S, idx, vals, R)
+        err = max_err(torch, [(out, ref)], rtol, atol,
+                      f"binsum {what} R={R} {dtype}")
         keep = (idx >= 0) & (idx < R)
         idx_in, vals_in = idx[keep].long(), vals[keep]
-        # the kernel alone accumulates into one preallocated buffer; the
-        # wrapper also zeroes a fresh one, as the train step's call does
-        out_buf = torch.zeros((R, C), device=dev)
+        # the C entry alone (memset and kernel) into one preallocated
+        # buffer; the wrapper also allocates a fresh one, as the step does
+        out_buf = torch.empty((R, C), device=dev)
         ms = time_ms(torch, lambda: S.BINSUM(
-            ptr(idx), ptr(vals), ptr(out_buf), N, C, R, stream))
-        wrap_ms = time_ms(torch, lambda: S.binsum_rows(idx, vals, R))
+            ptr(idx), ptr(vals), ptr(out_buf), N, C, R, code, stream))
+        wrap_ms = best_ms(torch, lambda: S.binsum_rows(idx, vals, R))
+        whole_ms, whole_lib_ms = binsum_whole_call(
+            torch, S, caller,
+            ids.reshape(-1).to(torch.int32) if caller == "TakeRows" else idx,
+            vals, R)
         plain_ms = time_ms(torch, lambda: S.binsum_rows_plain(idx, vals, R))
-        lib_ms = time_ms(torch, lambda: torch.zeros(
-            (R, C), device=dev).index_add_(0, idx_in, vals_in))
-        # the kernel reads ids and vals and writes the rows they touch;
-        # the wrapper (and index_add_) also writes every other row of the
-        # (R, C) output, as zeros
+        lib_ms = best_ms(torch, lambda: torch.zeros(
+            (R, C), device=dev).index_add_(0, idx_in, vals_in.float()))
         touched = torch.unique(idx_in).numel()
-        b, by = bound_ms(4 * N + 4 * N * C + 4 * touched * C, N * C)
-        wrap_b, _ = bound_ms(4 * N + 4 * N * C + 4 * R * C, N * C)
-        row = {"shape": f"{what} N={N} C={C} R={R}", "sizes": (N, C, R),
-               "touched_rows": touched, "max_abs_err": err,
-               "ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
-               "bound_ms": b, "bound_by": by, "wrapper_bound_ms": wrap_b,
-               "library_ms": lib_ms}
+        (b, by), wrap_b = binsum_bounds(vals, R, touched)
+        row = {"shape": f"{what} N={N} C={C} R={R} {str(dtype)[6:]}",
+               "sizes": (N, C, R, code), "dtype": str(dtype)[6:],
+               "caller": caller, "touched_rows": touched,
+               "max_abs_err": err, "ms": ms, "wrapper_ms": wrap_ms,
+               "whole_ms": whole_ms, "whole_library_ms": whole_lib_ms,
+               "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+               "wrapper_bound_ms": wrap_b, "library_ms": lib_ms}
+        if dtype != torch.float32:
+            # the passes that wrapped the kernel before it read bf16: the
+            # f32 copy of the cotangent, and (still paid) the cast back
+            row["cast_in_ms"] = time_ms(torch, lambda: vals.float())
+            row["cast_out_ms"] = time_ms(torch, lambda: out_buf.to(dtype))
         shapes.append(row)
         warm, cold = launchers(S.BINSUM, (idx, vals, out_buf),
-                               (N, C, R, stream))
+                               (N, C, R, code, stream))
         row["cold_ms"] = time_ms(torch, cold, iters=100)
         deferred.append((row, warm, cold, "binsum"))
-        del out, ref, abs_sum, idx_in, vals_in
+        del out, ref, atol, idx_in, vals_in
     first = shapes[0]
     return [{"name": "binsum_rows", "route": "cuda",
              "source": "nmf_tpu_torch/csrc/binsum.cu",
              "replaces": "nmf_tpu/ops/pallas/binsum.py:40",
              "kernel": S.BINSUM} | first | {"shapes": shapes}]
+
+
+class BinsumRecorder:
+    """Records the ids of every K3 launch of the train steps numbered in
+    ``steps`` (0-based), through a hook around ``binsum_rows`` where its
+    callers (``ops.grid_sample``, ``ops.masked``) look it up, and a count
+    of ``trainer.train_step`` calls. Entries: (step, idx copy, C, R,
+    dtype)."""
+
+    def __init__(self, steps):
+        from nmf_tpu_torch import trainer
+        from nmf_tpu_torch.ops import grid_sample, masked
+
+        self.steps, self.step, self.entries = set(steps), -1, []
+        self.callers, self.trainer = (grid_sample, masked), trainer
+        self.binsum, self.train_step = masked.binsum_rows, trainer.train_step
+
+    def __enter__(self):
+        def recorded(idx, vals, num_rows):
+            if self.step in self.steps:
+                self.entries.append((self.step, idx.clone(), vals.shape[1],
+                                     num_rows, vals.dtype))
+            return self.binsum(idx, vals, num_rows)
+
+        def counted(*args, **kwargs):
+            self.step += 1
+            return self.train_step(*args, **kwargs)
+
+        for module in self.callers:
+            module.binsum_rows = recorded
+        self.trainer.train_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        for module in self.callers:
+            module.binsum_rows = self.binsum
+        self.trainer.train_step = self.train_step
+
+
+def replay_binsum(torch, dev, gen, entries, synthetic):
+    """K3 on the ids a flagship step launched it with (vals drawn in the
+    dtype it got), held against the plain version and timed L2-cold on the
+    device, beside the synthetic row of the same sizes. Returns the rows
+    and, per recorded step, the device sums of both."""
+    from nmf_tpu_torch.ops.kernels import binsum as S
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    by_sizes = {r["sizes"]: r for r in synthetic}
+    rows, sums = [], {}
+    for step, idx, C, R, dtype in entries:
+        N, code = idx.numel(), S.DTYPE_CODES[dtype]
+        vals = torch.randn((N, C), generator=gen, device=dev).to(dtype)
+        rtol, atol = binsum_tolerance(S, idx, vals, R)
+        err = max_err(torch, [(S.binsum_rows(idx, vals, R),
+                               S.binsum_rows_plain(idx, vals, R))],
+                      rtol, atol, f"binsum replayed step {step} N={N} C={C}")
+        keep = (idx >= 0) & (idx < R)
+        touched = torch.unique(idx[keep]).numel()
+        _, cold = launchers(S.BINSUM, (idx, vals, torch.empty((R, C),
+                                                              device=dev)),
+                            (N, C, R, code, stream))
+        synth = by_sizes.get((N, C, R, code), {})
+        row = {"step": step, "sizes": (N, C, R, code),
+               "dtype": str(dtype)[6:], "touched_rows": touched,
+               "runs": int((idx[1:] != idx[:-1]).sum()) + 1,
+               "max_abs_err": err,
+               "device_cold_ms": device_ms(torch, cold, "binsum"),
+               "synthetic_device_cold_ms": synth.get("device_cold_ms"),
+               "bound_ms": binsum_bounds(vals, R, touched)[0][0]}
+        rows.append(row)
+        total = sums.setdefault(step, {"real": 0.0, "synthetic": 0.0})
+        total["real"] += row["device_cold_ms"] or float("nan")
+        total["synthetic"] += (row["synthetic_device_cold_ms"]
+                               or float("nan"))
+        del cold, vals
+    return rows, sums
 
 
 def check_small_path(torch, dev):
@@ -590,6 +730,9 @@ def check_small_flagship(torch, dev):
 # alpha threshold (1e-3 at the march step) for hundreds of iterations, and
 # a rebuild before it clears it culls the whole scene (PERF.md, section 6).
 FLAGSHIP_ITERS = 600
+# flagship train steps whose K3 ids are recorded and replayed: one before
+# the upsample, one after it
+REPLAY_STEPS = (FLAGSHIP_ITERS // 4, 3 * FLAGSHIP_ITERS // 4)
 MAIN_PATHS = (
     ("tensorf", ["model=tensorf", "model.params.n_iters=300",
                  "field.upsamp_list=[150]",
@@ -710,14 +853,21 @@ def main():
     # the microfacet flagship; each kernel's count is set to 0 just before
     # a path and read just after it ----
     shutil.rmtree(LOG_DIR, ignore_errors=True)
-    launches, by_size = {}, {}
+    launches, by_size, recorded = {}, {}, []
     for label, overrides in MAIN_PATHS:
         cfg = config.compose([*overrides, "dataset=synthetic_sphere",
                               "device=cuda", f"basedir={LOG_DIR}",
                               f"expname={label}",
                               "progress_refresh_rate=100"])
-        res, launches[label], by_size[label] = drive_main_path(
-            torch, kernels, cfg, label, card, reconstruction)
+        # the flagship's K3 ids of one step before the upsample, one after
+        recorder = BinsumRecorder(REPLAY_STEPS if label == "microfacet_tensorf2"
+                                  else ())
+        with recorder:
+            res, launches[label], by_size[label] = drive_main_path(
+                torch, kernels, cfg, label, card, reconstruction)
+        recorded += recorder.entries
+    if not recorded:
+        fail(f"no K3 launch was recorded at flagship steps {REPLAY_STEPS}")
 
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
@@ -732,6 +882,9 @@ def main():
                 p: n[k["name"]].get(row["sizes"], 0)
                 for p, n in by_size.items()}
         k |= k["shapes"][0]  # a kernel's line gives its first shape
+    binsum = next(k for k in kernels if k["name"] == "binsum_rows")
+    binsum["replayed"], binsum["replayed_step_sums"] = replay_binsum(
+        torch, dev, gen, recorded, binsum["shapes"])
     print(f"launch floor on {card}: an empty kernel of the composite "
           f"library, back to back {floor['ms']:.4f} ms, device "
           f"{ms_or_not(floor['device_ms'])}")
@@ -748,13 +901,31 @@ def main():
                         f", L2-cold {row.get('cold_ms', float('nan')):.4f}"
                         f" ms (device "
                         f"{ms_or_not(row.get('device_cold_ms'))})")
+            whole = ("" if "whole_ms" not in row else
+                     f", whole call ({row['caller']}) {row['whole_ms']:.4f}"
+                     f" vs index_add_ {row['whole_library_ms']:.4f}")
+            if "cast_in_ms" in row:
+                whole += (f", casts: in {row['cast_in_ms']:.4f}, out "
+                          f"{row['cast_out_ms']:.4f}")
             print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
                   f"{row['max_abs_err']:.3e}, {row['ms']:.4f} ms (device "
                   f"{ms_or_not(row.get('device_ms'))}){cold_txt}, wrapper "
-                  f"{row['wrapper_ms']:.4f}, plain "
+                  f"{row['wrapper_ms']:.4f}{whole}, plain "
                   f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
                   f"{row['bound_by']}{wrap_bound}, library "
                   f"{row['library_ms']}, launches {row['launches_by_path']}")
+    for row in binsum["replayed"]:
+        print(f"kernel binsum_rows on the ids of flagship step {row['step']}"
+              f" (N, C, R, dtype code {row['sizes']}, {row['touched_rows']}"
+              f" rows touched, {row['runs']} runs of equal ids): max_abs_err"
+              f" {row['max_abs_err']:.3e}, device L2-cold "
+              f"{ms_or_not(row['device_cold_ms'])} (synthetic ids "
+              f"{ms_or_not(row['synthetic_device_cold_ms'])}), bound "
+              f"{row['bound_ms']:.4f}")
+    for step, t in binsum["replayed_step_sums"].items():
+        print(f"K3 device L2-cold summed over flagship step {step}'s "
+              f"launches on {card}: real ids {t['real']:.4f} ms, synthetic "
+              f"ids at the same sizes {t['synthetic']:.4f} ms")
 
     line = [{key: v for key, v in k.items() if key != "kernel"}
             | {"launches": launches["microfacet_tensorf2"][k["name"]],

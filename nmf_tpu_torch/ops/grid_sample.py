@@ -26,9 +26,10 @@ def _unnormalize(coord, size):
 
 class TakeRows(torch.autograd.Function):
     """``table[idx]`` along axis 0 whose backward accumulates the row
-    cotangents with ``binsum_rows`` (in f32, cast back to the table's dtype),
-    as ``_qg_bwd`` and ``take_rows_binsum`` do in nmf_tpu. ``idx``: (N,)
-    int32, every id in range."""
+    cotangents with ``binsum_rows`` (read in the table's dtype, summed in
+    f32, cast back to the table's dtype), as ``_qg_bwd`` and
+    ``take_rows_binsum`` do in nmf_tpu. ``idx``: (N,) int32, every id in
+    range."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -39,7 +40,7 @@ class TakeRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        d = binsum_rows(idx, g.float().contiguous(), ctx.num_rows)
+        d = binsum_rows(idx, g.contiguous(), ctx.num_rows)
         return d.to(g.dtype), None
 
 

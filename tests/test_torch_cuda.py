@@ -83,16 +83,25 @@ def test_transmittance_kernel_matches_plain_on_card(cuda, shape, rays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["collisions", "runs", "flagship C=9",
-                                  "flagship C=12", "flagship C=44",
-                                  "flagship C=288"])
+@pytest.mark.parametrize("case", [
+    "collisions", "runs", "flagship C=6", "flagship C=9", "flagship C=12",
+    "flagship C=44", "flagship C=288", "bf16 C=288", "bf16 C=160",
+    "bf16 C=112", "bf16 C=80", "long runs C=9", "long runs C=44",
+    "all out of range"])
 def test_binsum_kernel_matches_plain_on_card(cuda, case):
-    # atomics add in a varying order: rtol/atol 1e-4
+    # atomics add in a varying order: rtol/atol 1e-4. The bf16 cases hand
+    # both the same bf16 rows, which the kernel reads in place and the
+    # plain version widens to f32 first.
     idx, vals, R = binsum_case(case)
     idx_t, vals_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
+    if case.startswith("bf16"):
+        vals_t = vals_t.bfloat16()
     out = tbin.binsum_rows(idx_t, vals_t, R)
     ref = tbin.binsum_rows_plain(idx_t, vals_t, R)
+    assert out.dtype == torch.float32
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    if case == "all out of range":
+        assert not out.any()
 
 
 @pytest.mark.cuda

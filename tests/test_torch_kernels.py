@@ -248,19 +248,20 @@ def test_cpu_tensors_take_the_plain_versions():
 
 def test_launches_are_counted_by_size():
     # a stand-in C entry that reports success: the counts key each launch
-    # by its non-pointer arguments (binsum: N, C, R), a failed one counts
-    # nowhere
+    # by its non-pointer arguments (binsum: N, C, R, dtype code), a failed
+    # one counts nowhere
     from nmf_tpu_torch.ops.kernels.build import CudaKernel
 
     k = CudaKernel("binsum.cu", "binsum_rows", tbin.BINSUM.argtypes)
     k._fn = lambda *args: 0
-    for n in (10, 10, 20):
-        k(1, 2, 3, n, 4, 7, None)
+    for n, code in ((10, 1), (10, 1), (20, 1), (10, 0)):
+        k(1, 2, 3, n, 4, 7, code, None)
     k._fn = lambda *args: 1
     with pytest.raises(RuntimeError):
-        k(1, 2, 3, 30, 4, 7, None)
-    assert k.launches == 3
-    assert dict(k.launches_by_size) == {(10, 4, 7): 2, (20, 4, 7): 1}
+        k(1, 2, 3, 30, 4, 7, 1, None)
+    assert k.launches == 4
+    assert dict(k.launches_by_size) == {(10, 4, 7, 1): 2, (20, 4, 7, 1): 1,
+                                        (10, 4, 7, 0): 1}
 
 
 @pytest.mark.parametrize("case", ["collisions", "runs"])
@@ -276,6 +277,43 @@ def test_binsum_plain_matches_pallas_and_numpy(case):
                             R).numpy()
     np.testing.assert_allclose(tout, ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tout, jout, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["collisions", "runs", "bf16 C=288",
+                                  "bf16 C=80"])
+def test_binsum_plain_reads_bf16_in_its_dtype(case):
+    # bf16 rows (the field's cotangents): the plain version widens them to
+    # f32, exactly, and sums in f32, so it equals itself on vals.float()
+    # bit for bit; against the Pallas kernel on the same bf16-representable
+    # values, f32 sums in another order (rtol/atol 1e-4)
+    idx, vals, R = binsum_case(case)
+    idx_t = torch.from_numpy(idx)
+    vals_bf = torch.from_numpy(vals).bfloat16()
+    out = tbin.binsum_rows(idx_t, vals_bf, R)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, tbin.binsum_rows_plain(idx_t, vals_bf.float(), R))
+    jout = np.asarray(j_binsum(jnp.asarray(idx),
+                               jnp.asarray(vals_bf.float().numpy()), R,
+                               interpret=True))
+    np.testing.assert_allclose(out.numpy(), jout, rtol=1e-4, atol=1e-4)
+
+
+def test_binsum_check_args_rejects_what_the_kernel_does_not_take():
+    # checked before the launch: ids int32 (N,), vals f32 or bf16 (N, C),
+    # both contiguous, 0 < num_rows < 2^31, one CUDA device
+    idx, vals = torch.zeros(6, dtype=torch.int32), torch.zeros(6, 4)
+    for bad_idx, bad_vals, rows, err in (
+            (idx, vals.half(), 3, TypeError),
+            (idx.long(), vals, 3, TypeError),
+            (idx[:5], vals, 3, TypeError),
+            (idx, vals[:, None], 3, ValueError),
+            (idx, torch.zeros(4, 6).t(), 3, ValueError),
+            (idx, vals, 0, ValueError),
+            (idx, vals, 2 ** 31, ValueError),
+            (idx, vals, 3, ValueError)):  # right in all but the device
+        with pytest.raises(err):
+            tbin.check_args(bad_idx, bad_vals, rows)
+    assert tbin.DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1}
 
 
 @pytest.mark.parametrize("shape", [(8, 17, 23, 512), (40, 16, 16, 300)],

@@ -123,6 +123,42 @@ def test_compact_topk_and_gather_rows(k):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("gather", ["quad_gather_2d", "line_interp"])
+def test_take_rows_hands_binsum_the_cotangent_in_its_dtype(monkeypatch,
+                                                           gather, dtype):
+    # TakeRows.backward passes the cotangent to binsum_rows as it comes (no
+    # f32 copy of bf16 rows) and returns the f32 sum cast to the table's
+    # dtype: equal, bit for bit, to casting the f32 sum of the widened rows
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    seen = []
+
+    def spy(idx, vals, num_rows):
+        seen.append((vals.dtype, vals.is_contiguous()))
+        return tmasked.binsum_rows(idx, vals, num_rows)
+
+    monkeypatch.setattr(tgs, "binsum_rows", spy)
+    rng = _rng(12)
+    if gather == "quad_gather_2d":
+        table = rng.normal(size=(6, 9, 11)).astype(np.float32)
+        coords = rng.uniform(-1.05, 1.05, (200, 2)).astype(np.float32)
+    else:
+        table = rng.normal(size=(6, 13)).astype(np.float32)
+        coords = rng.uniform(-1.05, 1.05, (200,)).astype(np.float32)
+    t = torch.tensor(table).to(td).requires_grad_(True)
+    rows = getattr(tgs, gather)(t, torch.from_numpy(coords))
+    (rows * torch.from_numpy(rng.normal(size=rows.shape).astype(
+        np.float32))).sum().backward()
+    assert seen == [(td, True)]
+    assert t.grad.dtype == td
+
+    idx = torch.from_numpy(rng.integers(0, 20, 300).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=(300, 5)).astype(np.float32)).to(td)
+    ctx = type("Ctx", (), {"saved_tensors": (idx,), "num_rows": 20})
+    d, _ = tgs.TakeRows.backward(ctx, g)
+    assert torch.equal(d, tmasked.binsum_rows(idx, g.float(), 20).to(td))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_line_interp_matches_line_interp_matmul(dtype):
     # f32: the same two products per sample (tight). bf16: the line and the
     # 2-hot weights are rounded to bf16 in both, products accumulate in

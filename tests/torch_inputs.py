@@ -37,14 +37,55 @@ def cotangents(B, K, seed=1):
             rng.normal(size=(B,)).astype(np.float32))
 
 
+def sorted_runs(rng, N, R, longest):
+    """N sorted row ids in [0, R), in runs of 1 to ``longest`` equal ids."""
+    ids = np.sort(rng.choice(R, N, replace=False))
+    return np.repeat(ids, rng.integers(1, longest + 1, N))[:N].astype(
+        np.int32)
+
+
 def binsum_case(case):
+    """(idx, vals, R) of a named K3 case; vals are f32 (the bf16 cases
+    round them to bf16 where they use them)."""
     rng = np.random.default_rng(11)
+    if case.startswith("bf16"):
+        # the field's bf16 gradient rows: plane ids walking the texels in
+        # runs of 10 (C = 288, 160); line ids piling into 128 cells
+        # (C = 112, 80)
+        C = int(case.split("C=")[1])
+        N = 20000
+        if C in (288, 160):
+            R = 4096
+            idx = np.repeat(rng.integers(0, R, N // 10), 10)
+        else:
+            R = 128
+            idx = np.sort(rng.integers(0, R, N))
+        idx = idx.astype(np.int32)
+        idx[:40] = R + 3
+        return idx, rng.normal(size=(N, C)).astype(np.float32), R
+    if case.startswith("long runs"):
+        # sorted runs of 1-100 equal ids: they cross the 32-lane warps and
+        # every run boundary of the kernel's threads (8 to 64 rows)
+        C = int(case.split("C=")[1])
+        N, R = 30000, 50000
+        idx = sorted_runs(rng, N, R, 100)
+        idx[-25:] = R
+        return idx, rng.normal(size=(N, C)).astype(np.float32), R
+    if case == "all out of range":
+        N, C, R = 3000, 12, 700
+        idx = rng.choice(np.array([-2 ** 31, -1, R, R + 5, 2 ** 31 - 1],
+                                  np.int32), N)
+        return idx, rng.normal(size=(N, C)).astype(np.float32), R
     if case.startswith("flagship"):
         # the flagship's narrow K3 launches: runs of 1-32 bounce rays a
         # parent sample (C = 9 segment sums, C = 44 parent gathers),
-        # scattered SAT corners (C = 12), a field plane (C = 288)
+        # scattered SAT corners (C = 12), retrace rows (C = 6), a field
+        # plane (C = 288)
         C = int(case.split("C=")[1])
-        if C == 12:
+        if C == 6:
+            N, R = 1024, 65536
+            idx = rng.choice(R, N, replace=False).astype(np.int32)
+        elif C == 12:
             N, R = 40000, 90000
             idx = rng.integers(0, R, N).astype(np.int32)
         elif C == 288:
@@ -52,8 +93,7 @@ def binsum_case(case):
             idx = np.repeat(rng.integers(0, R, N // 10), 10).astype(np.int32)
         else:
             N, R = 20000, 60000
-            idx = np.repeat(np.sort(rng.choice(R, N, replace=False)),
-                            rng.integers(1, 33, N))[:N].astype(np.int32)
+            idx = sorted_runs(rng, N, R, 32)
         idx[:50] = R + 3
         return idx, rng.normal(size=(N, C)).astype(np.float32), R
     if case == "collisions":
