@@ -39,11 +39,25 @@
    600 iterations through one upsample. Each evaluates the test views and
    fails unless the loss is finite, every kernel was launched on it and
    the test PSNR > 17 dB.
+5. The studio path: model=microfacet_tensorf2 at the same widths on
+   synthetic_studio (hemisphere cameras, 24 views of 128^2, generated on
+   the host and timed) with the studio 8k arms' knobs: fixed-shape field
+   (planes padded to 300^2 from step 0), lr_upsample_reset=false,
+   distortion 1e-3, batch 4096. 1000 iterations paused by stop_iter at
+   500 and resumed from the _latest.th to the end, through the arms'
+   schedule scaled to 1000 iterations (seven upsamples to 300^3, three at
+   and after the pause, and five mask rebuilds), the final checkpoint,
+   the final eval
+   (PSNR, SSIM, norm_err, tint_psnr, envmap_psnr), then render_only on
+   the checkpoint, which must reproduce the eval's PSNR within 0.1 dB.
+   K3 is held and timed on the ids of two of its steps, as for the
+   flagship.
 
 Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
+import contextlib
 import itertools
 import json
 import math
@@ -744,31 +758,46 @@ MAIN_PATHS = (
 )
 
 
-def drive_main_path(torch, kernels, cfg, label, card, reconstruction):
-    """Train and evaluate one configuration with every kernel count set to
-    0 first. Fails unless the loss is finite, every kernel launched, only at
-    sizes that its check held, and the test PSNR clears the bar. Returns
-    (results, launches by kernel, launches by kernel and sizes)."""
-    from nmf_tpu_torch import train
-
-    n_iters = int(cfg["model"]["params"]["n_iters"])
+def reset_counts(kernels):
     for k in kernels:
         k["kernel"].launches = 0
         k["kernel"].launches_by_size.clear()
+
+
+@contextlib.contextmanager
+def counts_at_eval(train, kernels):
+    """Within the block, each kernel's count as the first evaluation
+    starts fills the dict yielded: after a run with no mid-run evaluation,
+    the train steps' launches."""
     at_eval = {}
     evaluate = train.eval_lib.evaluate
 
     def counted_evaluate(*args, **kwargs):
-        at_eval.update({k["name"]: k["kernel"].launches for k in kernels})
+        if not at_eval:
+            at_eval.update({k["name"]: k["kernel"].launches for k in kernels})
         return evaluate(*args, **kwargs)
 
     train.eval_lib.evaluate = counted_evaluate
-    torch.cuda.synchronize()
-    t0 = time.time()
     try:
-        _, res = reconstruction(cfg, log=lambda s: print(f"  {s}"))
+        yield at_eval
     finally:
         train.eval_lib.evaluate = evaluate
+
+
+def drive_main_path(torch, kernels, label, card, n_iters, run):
+    """Drive one path with every kernel count set to 0 first: ``run(log)``
+    trains and evaluates, and returns (results, train seconds, a note for
+    the summary line). Fails unless the loss is finite, every kernel
+    launched, only at sizes that its check held, and the test PSNR clears
+    the bar. Returns (launches by kernel, launches by kernel and
+    sizes)."""
+    from nmf_tpu_torch import train
+
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with counts_at_eval(train, kernels) as at_eval:
+        res, train_seconds, note = run(lambda s: print(f"  {s}"))
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k["name"]: k["kernel"].launches for k in kernels}
@@ -778,6 +807,57 @@ def drive_main_path(torch, kernels, cfg, label, card, reconstruction):
           f"by sizes {by_size}, results {res}")
     if not math.isfinite(res.get("loss", float("nan"))):
         fail(f"{label}: training loss is not finite: {res.get('loss')}")
+    check_launches(kernels, label, launches, by_size)
+    if not res.get("psnr", 0.0) > PSNR_BAR:
+        fail(f"{label}: test PSNR {res.get('psnr')} <= {PSNR_BAR} dB")
+    per_step = {k: round(v / n_iters, 2) for k, v in at_eval.items()}
+    thin = "".join(f", {k} {res[k]:.3f}" for k in
+                   ("thin_scale", "thin_scale_retrace") if k in res)
+    print(f"{label} {n_iters} iters on {card}: train "
+          f"{res['rays_per_sec']:.0f} rays/s, mean step "
+          f"{1e3 * train_seconds / n_iters:.2f} ms (host clock, "
+          f"schedule events included), wall {wall:.1f} s, test PSNR "
+          f"{res['psnr']:.2f} dB, SSIM {res['ssim']:.4f}{thin}{note}, "
+          f"launches per train step {per_step}")
+    return launches, by_size
+
+
+# The studio path: the flagship at full width on synthetic_studio under
+# the protocol knobs of the studio 8k arms (runs/tpu_queue_r4f.sh arm8ks):
+# hemisphere cameras, the fixed-shape field (planes padded to the final
+# 300^2 from step 0), the global lr schedule across events, distortion
+# 1e-3, batch 4096 (max_batch_size 4096 pins the controller). Cut: 24 views
+# of 128^2 a split, 1000 iterations paused at 500 (stop_iter) and resumed
+# to the end, the arms' schedule scaled from 8000 iterations to 1000: seven
+# upsamples (128^3 -> 300^3 live, three at and after the pause) and five
+# alpha-mask rebuilds, the final eval on 8 test views; then render_only on
+# the final checkpoint. The rebuilds stay: on this scene the flagship's
+# density clears the mask threshold by the first one, and without them
+# floaters hold the test PSNR near 15 dB however long it trains.
+STUDIO_ITERS = 1000
+# the arms' upsample and mask-rebuild iterations, scaled to STUDIO_ITERS
+STUDIO_UPSAMPLES, STUDIO_REBUILDS = (
+    ",".join(str(i * STUDIO_ITERS // 8000) for i in iters)
+    for iters in ((500, 1000, 2000, 3000, 4000, 5500, 7000),
+                  (2000, 3000, 4000, 5500, 7000)))
+STUDIO = [
+    "model=microfacet_tensorf2", "dataset=synthetic_studio",
+    "dataset.hemisphere=true", "dataset.n_views=24", "dataset.image_size=128",
+    "field.fixed_shape=true", "model.params.lr_upsample_reset=false",
+    "model.params.distortion_lambda=1e-3", "model.params.max_batch_size=4096",
+    f"model.params.n_iters={STUDIO_ITERS}",
+    f"field.upsamp_list=[{STUDIO_UPSAMPLES}]",
+    f"model.arch.sampler.update_list=[{STUDIO_REBUILDS}]",
+    "final_N_vis=8", "vis_every=0",
+    "device=cuda", f"basedir={LOG_DIR}", "progress_refresh_rate=100"]
+# studio train steps whose K3 ids are recorded and replayed: one with the
+# live grid at 128^3 inside the padded planes, one after the last upsample
+STUDIO_REPLAY_STEPS = (STUDIO_ITERS // 32, 15 * STUDIO_ITERS // 16)
+RENDER_ONLY_DB = 0.1  # the verify skill's "Checkpoint / relighting" bar
+
+
+def check_launches(kernels, label, launches, by_size):
+    """Fails unless every kernel launched, only at sizes its check held."""
     for k in kernels:
         if launches[k["name"]] <= 0:
             fail(f"{label}: kernel {k['name']} was not launched on the main "
@@ -786,18 +866,62 @@ def drive_main_path(torch, kernels, cfg, label, card, reconstruction):
         if unheld:
             fail(f"{label}: kernel {k['name']} was launched at sizes "
                  f"{sorted(unheld)} that its check did not hold")
-    if not res.get("psnr", 0.0) > PSNR_BAR:
-        fail(f"{label}: test PSNR {res.get('psnr')} <= {PSNR_BAR} dB")
-    per_step = {k: round(v / n_iters, 2) for k, v in at_eval.items()}
-    thin = "".join(f", {k} {res[k]:.3f}" for k in
-                   ("thin_scale", "thin_scale_retrace") if k in res)
-    print(f"{label} {n_iters} iters on {card}: train "
-          f"{res['rays_per_sec']:.0f} rays/s, mean step "
-          f"{1e3 * res['train_seconds'] / n_iters:.2f} ms (host clock, "
-          f"schedule events included), wall {wall:.1f} s, test PSNR "
-          f"{res['psnr']:.2f} dB, SSIM {res['ssim']:.4f}{thin}, launches "
-          f"per train step {per_step}")
-    return res, launches, by_size
+
+
+def studio_path(config):
+    """Generate the studio scene (timed, on the host) and return the
+    path's run for ``drive_main_path``: a stop_iter pause at half the
+    iterations, a resume to the end with the final checkpoint and eval,
+    then render_only on that checkpoint. Fails unless the loss before the
+    pause is finite, the pause left a _latest.th, the resumed run wrote
+    the final checkpoint and render_only reproduces the final eval's PSNR
+    within RENDER_ONLY_DB."""
+    import os
+
+    from nmf_tpu_torch import train
+    from nmf_tpu_torch.data import load_dataset
+
+    os.environ["NMF_DATASET_CACHE"] = str(LOG_DIR / "dataset_cache")
+    cfg = config.compose([*STUDIO, "expname=studio"])
+    t0 = time.time()
+    for split in ("train", "test"):
+        load_dataset(cfg["dataset"], None, split)
+    print(f"studio scene: 2 splits x 24 views of 128^2 generated on the "
+          f"host in {time.time() - t0:.1f} s (then read from the cache)")
+    folder = LOG_DIR / "synthetic_studio_studio"
+
+    def run(log):
+        half = STUDIO_ITERS // 2
+        _, first = train.reconstruction(config.compose(
+            [*STUDIO, "expname=studio", f"stop_iter={half}"]), log=log)
+        if first.get("paused_at") != half or not (
+                folder / "synthetic_studio_studio_latest.th").exists():
+            fail(f"studio: the stop_iter pause left no _latest.th ({first})")
+        if not math.isfinite(first.get("loss", float("nan"))):
+            fail(f"studio: loss before the pause is not finite: {first}")
+        _, res = train.reconstruction(config.compose(
+            [*STUDIO, "expname=studio", "resume=True"]), log=log)
+        final = folder / "synthetic_studio_studio.th"
+        if not final.exists():
+            fail(f"studio: the resumed run wrote no final checkpoint: {res}")
+        _, rendered = train.dispatch(config.compose(
+            [*STUDIO, "expname=studio_render", "render_only=True",
+             f"ckpt={final}"]), log=log)
+        print(f"studio render_only: {rendered}")
+        if not abs(rendered["psnr"] - res.get("psnr", 0.0)) <= RENDER_ONLY_DB:
+            fail(f"studio: render_only PSNR {rendered['psnr']} is not within "
+                 f"{RENDER_ONLY_DB} dB of the final eval's {res.get('psnr')}")
+        note = (f", norm_err {res['norm_err']:.2f} deg, tint_psnr "
+                f"{res['tint_psnr']:.2f} dB, envmap_psnr "
+                f"{res['envmap_psnr']:.2f} dB; before / after the pause "
+                f"{first['rays_per_sec']:.0f} / {res['rays_per_sec']:.0f} "
+                f"rays/s, mean step "
+                f"{1e3 * first['train_seconds'] / half:.2f} / "
+                f"{1e3 * res['train_seconds'] / half:.2f} ms; render_only "
+                f"PSNR {rendered['psnr']:.2f} dB")
+        return res, first["train_seconds"] + res["train_seconds"], note
+
+    return run
 
 
 def main():
@@ -862,12 +986,25 @@ def main():
         # the flagship's K3 ids of one step before the upsample, one after
         recorder = BinsumRecorder(REPLAY_STEPS if label == "microfacet_tensorf2"
                                   else ())
+
+        def run(log, cfg=cfg):
+            res = reconstruction(cfg, log=log)[1]
+            return res, res["train_seconds"], ""
+
         with recorder:
-            res, launches[label], by_size[label] = drive_main_path(
-                torch, kernels, cfg, label, card, reconstruction)
+            launches[label], by_size[label] = drive_main_path(
+                torch, kernels, label, card,
+                int(cfg["model"]["params"]["n_iters"]), run)
         recorded += recorder.entries
     if not recorded:
         fail(f"no K3 launch was recorded at flagship steps {REPLAY_STEPS}")
+    # ---- the studio path: pause, resume, final checkpoint, render_only ----
+    with BinsumRecorder(STUDIO_REPLAY_STEPS) as recorder:
+        launches["studio"], by_size["studio"] = drive_main_path(
+            torch, kernels, "studio", card, STUDIO_ITERS, studio_path(config))
+    if not recorder.entries:
+        fail(f"no K3 launch was recorded at studio steps "
+             f"{STUDIO_REPLAY_STEPS}")
 
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
@@ -885,6 +1022,8 @@ def main():
     binsum = next(k for k in kernels if k["name"] == "binsum_rows")
     binsum["replayed"], binsum["replayed_step_sums"] = replay_binsum(
         torch, dev, gen, recorded, binsum["shapes"])
+    binsum["studio_replayed"], binsum["studio_replayed_step_sums"] = (
+        replay_binsum(torch, dev, gen, recorder.entries, binsum["shapes"]))
     print(f"launch floor on {card}: an empty kernel of the composite "
           f"library, back to back {floor['ms']:.4f} ms, device "
           f"{ms_or_not(floor['device_ms'])}")
@@ -914,18 +1053,21 @@ def main():
                   f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
                   f"{row['bound_by']}{wrap_bound}, library "
                   f"{row['library_ms']}, launches {row['launches_by_path']}")
-    for row in binsum["replayed"]:
-        print(f"kernel binsum_rows on the ids of flagship step {row['step']}"
-              f" (N, C, R, dtype code {row['sizes']}, {row['touched_rows']}"
-              f" rows touched, {row['runs']} runs of equal ids): max_abs_err"
-              f" {row['max_abs_err']:.3e}, device L2-cold "
-              f"{ms_or_not(row['device_cold_ms'])} (synthetic ids "
-              f"{ms_or_not(row['synthetic_device_cold_ms'])}), bound "
-              f"{row['bound_ms']:.4f}")
-    for step, t in binsum["replayed_step_sums"].items():
-        print(f"K3 device L2-cold summed over flagship step {step}'s "
-              f"launches on {card}: real ids {t['real']:.4f} ms, synthetic "
-              f"ids at the same sizes {t['synthetic']:.4f} ms")
+    for path in ("", "studio_"):
+        what = "studio" if path else "flagship"
+        for row in binsum[f"{path}replayed"]:
+            print(f"kernel binsum_rows on the ids of {what} step "
+                  f"{row['step']} (N, C, R, dtype code {row['sizes']}, "
+                  f"{row['touched_rows']} rows touched, {row['runs']} runs "
+                  f"of equal ids): max_abs_err {row['max_abs_err']:.3e}, "
+                  f"device L2-cold {ms_or_not(row['device_cold_ms'])} "
+                  f"(synthetic ids "
+                  f"{ms_or_not(row['synthetic_device_cold_ms'])}), bound "
+                  f"{row['bound_ms']:.4f}")
+        for step, t in binsum[f"{path}replayed_step_sums"].items():
+            print(f"K3 device L2-cold summed over {what} step {step}'s "
+                  f"launches on {card}: real ids {t['real']:.4f} ms, "
+                  f"synthetic ids at the same sizes {t['synthetic']:.4f} ms")
 
     line = [{key: v for key, v in k.items() if key != "kernel"}
             | {"launches": launches["microfacet_tensorf2"][k["name"]],

@@ -18,7 +18,7 @@ from .modules.brdf_samplers import GGXSampler
 from .modules.ish import ListISH
 from .modules.render_modules import RandHydraMLPDiffuse
 from .render import NMF
-from .samplers.alphagrid import AlphaGridSampler
+from .samplers.alphagrid import SUPERSTEP, AlphaGridSampler
 
 _LATER = ("is not ported yet: it comes with a later slice of nmf_tpu_torch "
           "(ROADMAP A.2 / A.4)")
@@ -37,8 +37,7 @@ def build_field(generator, cfg, aabb):
     if not (t.endswith("TensorVMSplit") or not t):
         raise NotImplementedError(f"field {t!r} {_LATER}")
     kw = _clean(cfg)
-    for key, why in (("fixed_shape", "fixed_shape padding"),
-                     ("dbasis", "dbasis"), ("contract_space",
+    for key, why in (("dbasis", "dbasis"), ("contract_space",
                                             "contract_space"),
                      ("num_pretrain", "density pretraining"),
                      ("calibrate", "density calibration")):
@@ -48,7 +47,7 @@ def build_field(generator, cfg, aabb):
                "N_voxel_init", "N_voxel_final", "upsamp_list", "init_mode",
                "d_init_val", "app_init_val", "activation", "density_shift",
                "step_ratio", "gather_dtype", "lr", "lr_net",
-               "distance_scale", "smoothing", "numer_grad"}
+               "distance_scale", "smoothing", "numer_grad", "fixed_shape"}
     kw = {k: v for k, v in kw.items() if k in allowed}
     if "upsamp_list" in kw:
         kw["upsamp_list"] = tuple(kw["upsamp_list"])
@@ -60,6 +59,15 @@ def build_sampler(cfg, aabb, near_far):
     if t and not t.endswith("AlphaGridSampler"):
         raise NotImplementedError(f"sampler {t!r} {_LATER}")
     kw = _clean(cfg)
+    # the port's march fixes nmf_tpu's defaults of these two
+    if int(kw.get("superstep", SUPERSTEP)) != SUPERSTEP:
+        raise NotImplementedError(
+            f"model.arch.sampler.superstep={kw['superstep']} (the port's "
+            f"two-level march fixes it at {SUPERSTEP}) {_LATER}")
+    if not kw.get("fine_alpha_test", True):
+        raise NotImplementedError(
+            "model.arch.sampler.fine_alpha_test=false (the march without "
+            f"the fine mask test) {_LATER}")
     allowed = {"enable_alpha_mask", "update_list", "multiplier",
                "alphaMask_thres"}
     kw = {k: v for k, v in kw.items() if k in allowed}
@@ -159,6 +167,10 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda") -> NMF:
                 "detach_inter"):
         if arch_cfg.get(key):
             raise NotImplementedError(f"model.arch.{key} {_LATER}")
+    if arch_cfg.get("mlp_dtype") not in (None, "f32"):
+        raise NotImplementedError(
+            f"model.arch.mlp_dtype={arch_cfg['mlp_dtype']!r} (bf16 MLP "
+            f"operands) {_LATER}")
     if int(arch_cfg.get("geonorm_iters", -1) or -1) > 0:
         raise NotImplementedError(f"model.arch.geonorm_iters {_LATER}")
     for key in ("app_samples_per_ray", "merge_runs",

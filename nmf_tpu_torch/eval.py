@@ -1,10 +1,18 @@
 """Image rendering and metric evaluation (``nmf_tpu/eval.py``): chunked
-rendering of a ray set, per-image PSNR/SSIM, and PNG artifacts (the test
-image, its squared error and rgb|depth). PNGs are written with zlib alone.
+rendering of a ray set; per-image PSNR / SSIM and, where the dataset has
+them, the masked angular error of the normals against ``all_norms``
+(``norm_err``, degrees) and the regression-aligned PSNR of the tint against
+``all_tints``; the envmap's regression-aligned metrics against a
+ground-truth panorama; the eval budget tiers; PNG artifacts (the test
+image, its squared error, rgb|depth and one folder per map), ``mean.txt``,
+the per-image ``stats.yaml`` and the envmap as ``pano.png``. PNGs are
+written with zlib alone.
 
-Not in this slice: LPIPS, normal/tint/envmap metrics, videos, HDR dumps,
-eval tiers and render_path.
+Not in this slice: LPIPS (its weights cannot be fetched here), videos, the
+``.exr`` dumps (they wait for the EXR writer, ROADMAP A.2) and
+render_path.
 """
+import contextlib
 import os
 import struct
 import zlib
@@ -17,6 +25,49 @@ import torch
 from . import utils
 from .ops.draws import Draws
 from .render import NMF, render
+
+
+# test-time Monte Carlo budget tiers: the multiplier of the shading
+# model's bounce rays a sample, bounce buffers and retrace buffers
+EVAL_TIERS = {"train": 1, "high": 2, "ultra": 4}
+
+
+def validate_eval_tier(tier):
+    """A tier name or a positive integer -> its multiplier; raises on
+    anything else (at startup, not after the training run)."""
+    if isinstance(tier, str):
+        if tier not in EVAL_TIERS:
+            raise ValueError(f"eval_tier must be one of "
+                             f"{sorted(EVAL_TIERS)} or an int, got {tier!r}")
+        return EVAL_TIERS[tier]
+    mult = int(tier)
+    if mult != tier or mult < 1:
+        raise ValueError(f"eval_tier must be a positive integer multiplier "
+                         f"or one of {sorted(EVAL_TIERS)}, got {tier!r}")
+    return mult
+
+
+@contextlib.contextmanager
+def apply_eval_tier(nmf: NMF, tier):
+    """Within the block, the shading model's test-time budgets
+    (test_rays_per_ray, brdf_ray_budget, max_retrace_rays) are scaled by
+    the tier's multiplier; models without them are left alone."""
+    mult = validate_eval_tier(tier)
+    model = nmf.model
+    keys = ("test_rays_per_ray", "brdf_ray_budget", "max_retrace_rays")
+    if mult <= 1 or not hasattr(model, "brdf_ray_budget"):
+        yield nmf
+        return
+    saved = {k: getattr(model, k) for k in keys}
+    model.test_rays_per_ray = saved["test_rays_per_ray"] * mult
+    model.brdf_ray_budget = tuple(b * mult for b in saved["brdf_ray_budget"])
+    model.max_retrace_rays = tuple(r * mult
+                                   for r in saved["max_retrace_rays"])
+    try:
+        yield nmf
+    finally:
+        for k, v in saved.items():
+            setattr(model, k, v)
 
 
 def _device(nmf: NMF):
@@ -97,12 +148,115 @@ def write_png(path, img):
     Path(path).write_bytes(png)
 
 
+def regression_aligned_psnr(pred, gt):
+    """PSNR after a per-channel linear fit of pred to gt."""
+    X = np.asarray(pred).reshape(-1, 3)
+    Y = np.asarray(gt).reshape(-1, 3)
+    A = np.concatenate([X, np.ones((X.shape[0], 1))], axis=1)
+    coef, *_ = np.linalg.lstsq(A, Y, rcond=None)
+    err = np.clip(A @ coef - Y, -1, 1)
+    return float(-10 * np.log10(np.mean(err ** 2) + 1e-12))
+
+
+def _resize(im, hw):
+    """Resize an (H, W, 3) image as nmf_tpu does: cv2's bilinear resize
+    where cv2 is installed, else PIL's on the image quantized to 8 bits."""
+    try:
+        import cv2
+
+        return cv2.resize(im, (hw[1], hw[0]))
+    except ImportError:
+        from PIL import Image
+
+        sc = (np.clip(im, 0, 1) * 255).astype(np.uint8)
+        return np.asarray(Image.fromarray(sc).resize((hw[1], hw[0]))) / 255.0
+
+
+def envmap_image(bg_module):
+    """The activated envmap as an (H, W, 3) numpy image."""
+    with torch.no_grad():
+        act = bg_module.activation_fn(bg_module.bg_mat)
+    return np.transpose(act.float().cpu().numpy(), (1, 2, 0))
+
+
+def calc_envmap_metrics(bg_module, gt_im, fH=500):
+    """The recovered envmap against a ground-truth panorama, both resized
+    to (fH, 2 fH) and the prediction regression-aligned per channel:
+    PSNR over the whole map and PSNR, SMAPE and SSIM over its top half
+    (the hemisphere the reflections see)."""
+    pred = envmap_image(bg_module)
+    gt = np.asarray(gt_im, dtype=np.float32)
+    gW = gt.shape[1]
+    gt = gt[:, ::-1]
+    gt = np.concatenate([gt[:, gW // 2:], gt[:, :gW // 2]], axis=1)
+    pred = _resize(pred, (fH, 2 * fH))
+    gt = _resize(gt[..., :3], (fH, 2 * fH))
+    X = pred.reshape(-1, 3)
+    Y = gt.reshape(-1, 3)
+    A = np.concatenate([X, np.ones((X.shape[0], 1))], axis=1)
+    coef, *_ = np.linalg.lstsq(A, Y, rcond=None)
+    aligned = (A @ coef).reshape(gt.shape).astype(np.float32)
+
+    def _metrics(p, g):
+        err = np.clip(p - g, -1, 1)
+        psnr = float(-10 * np.log10(np.mean(err ** 2) + 1e-12))
+        smape = float(np.mean(2.0 * np.abs(p - g)
+                              / (np.abs(p) + np.abs(g) + 1e-6)))
+        ssim = float(utils.rgb_ssim(np.clip(p, 0, 1), np.clip(g, 0, 1), 1.0))
+        return psnr, smape, ssim
+
+    top = slice(0, gt.shape[0] // 2)
+    psnr_top, smape_top, ssim_top = _metrics(aligned[top], gt[top])
+    psnr_full, _, _ = _metrics(aligned, gt)
+    return {"envmap_psnr_top": psnr_top, "envmap_smape_top": smape_top,
+            "envmap_ssim_top": ssim_top, "envmap_psnr": psnr_full}
+
+
+def normal_error_deg(pred_normals, gt_normals):
+    """(mean angular error in degrees over the pixels whose ground-truth
+    normal is set, per-pixel error map) or (None, None) when none is."""
+    mask = np.linalg.norm(gt_normals, axis=-1) > 0.9
+    if not mask.any():
+        return None, None
+    cos = np.clip((pred_normals * gt_normals).sum(-1), -1, 1)
+    err = np.rad2deg(np.arccos(cos))
+    return float(err[mask].mean()), np.where(
+        mask, np.clip(err / 90.0, 0, 1), 0.0)
+
+
+# (map, subfolder) dumped per test image; normals are shown as (n + 1) / 2
+_MAP_DIRS = (("world_normal", "world_normal"), ("normal", "normal"),
+             ("tint", "tint"), ("spec", "spec"), ("diffuse", "diffuse"),
+             ("albedo", "albedo"), ("cross_section", "cross_section"))
+
+
+def _save_maps(save_dir, name, maps, pred, gt, near_far):
+    d = Path(save_dir)
+    err = ((pred - gt) ** 2).mean(-1)
+    write_png(d / "err" / name, np.clip(err * 20, 0, 1))
+    depth = visualize_depth(maps["depth"], near_far)
+    write_png(d / "rgbd" / name, np.concatenate([pred, depth], axis=1))
+    for k, sub in _MAP_DIRS:
+        if k in maps:
+            im = maps[k]
+            write_png(d / sub / name, (im + 1) / 2 if "normal" in k else im)
+    if "roughness" in maps:
+        write_png(d / "roughness" / name, maps["roughness"][..., 0])
+    write_png(d / "acc_map" / name, maps["acc_map"])
+    write_png(d / "surf_width" / name,
+              np.clip(maps["surf_width"] / 64.0, 0, 1))
+
+
 def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
-             n_vis: int = -1, seed: int = 0):
-    """Render test views in chunks of ``nmf.eval_batch_size`` rays, return
-    {"psnr", "ssim"} means; with ``save_dir`` write {i:03d}.png, err/ and
-    rgbd/ PNGs and mean.txt. Random draws come from a generator seeded
-    with ``seed``."""
+             n_vis: int = -1, seed: int = 0, prefix: str = "",
+             compute_extra_metrics: bool = True, gt_bg=None):
+    """Render views of ``dataset`` in chunks of ``nmf.eval_batch_size``
+    rays and return the means of psnr, ssim (``compute_extra_metrics``)
+    and, where the dataset has them, norm_err and tint_psnr, plus the
+    envmap metrics against ``gt_bg``. With ``save_dir``: the images as
+    {prefix}{i:03d}.png, one folder of PNGs per map,
+    stats{prefix}.yaml, mean.txt and the envmap as {prefix}pano.png.
+    Random draws come from a generator seeded with ``seed``."""
     chunk = nmf.eval_batch_size
     draws = Draws(torch.Generator(device=_device(nmf)).manual_seed(seed))
     W, H = dataset["img_wh"]
@@ -110,30 +264,46 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
     n_images = dataset["all_rays"].shape[0] // n_px
     idxs = (range(n_images) if n_vis <= 0
             else range(0, n_images, max(n_images // n_vis, 1)))
-    stats = {"psnr": [], "ssim": []}
+    stats = {"psnr": [], "ssim": [], "norm_err": [], "tint_psnr": []}
     if save_dir is not None:
         os.makedirs(save_dir, exist_ok=True)
     for img_i in idxs:
-        rays = dataset["all_rays"][img_i * n_px:(img_i + 1) * n_px]
-        gt = dataset["all_rgbs"][img_i * n_px:(img_i + 1) * n_px]
-        gt = gt.reshape(H, W, -1)
+        px = slice(img_i * n_px, (img_i + 1) * n_px)
+        gt = dataset["all_rgbs"][px].reshape(H, W, -1)
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + (1 - gt[..., 3:])
-        maps = render_image(nmf, rays, (H, W), chunk=chunk,
+        maps = render_image(nmf, dataset["all_rays"][px], (H, W), chunk=chunk,
                             draws=draws.scoped(f"image{img_i}"))
         pred = np.clip(maps["rgb_map"], 0, 1)
+        name = f"{prefix}{img_i:03d}.png"
         stats["psnr"].append(utils.rgb_psnr(pred, gt))
-        stats["ssim"].append(utils.rgb_ssim(pred, gt, 1.0))
+        if compute_extra_metrics:
+            stats["ssim"].append(utils.rgb_ssim(pred, gt, 1.0))
+        if dataset.get("all_norms") is not None:
+            gt_n = dataset["all_norms"][px].reshape(H, W, 3)
+            err, err_map = normal_error_deg(maps["world_normal"], gt_n)
+            if err is not None:
+                stats["norm_err"].append(err)
+                if save_dir is not None:
+                    write_png(Path(save_dir) / "normal_err" / name, err_map)
+        if dataset.get("all_tints") is not None and "tint" in maps:
+            stats["tint_psnr"].append(regression_aligned_psnr(
+                maps["tint"].reshape(-1, 3), dataset["all_tints"][px]))
         if save_dir is not None:
-            name = f"{img_i:03d}.png"
             write_png(Path(save_dir) / name, pred)
-            err = ((pred - gt) ** 2).mean(-1)
-            write_png(Path(save_dir) / "err" / name, np.clip(err * 20, 0, 1))
-            depth = visualize_depth(maps["depth"], dataset.get("near_far"))
-            write_png(Path(save_dir) / "rgbd" / name,
-                      np.concatenate([pred, depth], axis=1))
-    summary = {k: float(np.mean(v)) for k, v in stats.items()}
+            _save_maps(save_dir, name, maps, pred, gt, dataset.get("near_far"))
+    summary = {k: float(np.mean(v)) for k, v in stats.items() if len(v)}
+    if gt_bg is not None and nmf.bg_module is not None:
+        summary.update(calc_envmap_metrics(nmf.bg_module, gt_bg))
     if save_dir is not None:
+        import yaml
+
+        with open(Path(save_dir) / f"stats{prefix}.yaml", "w") as f:
+            yaml.safe_dump({k: [float(x) for x in v]
+                            for k, v in stats.items() if len(v)}, f)
         with open(Path(save_dir) / "mean.txt", "w") as f:
             f.write(str(summary))
+        if nmf.bg_module is not None:
+            write_png(Path(save_dir) / f"{prefix}pano.png",
+                      envmap_image(nmf.bg_module))
     return summary

@@ -9,9 +9,18 @@ tables also carry the density planes filtered by the smoothed derivative
 kernels and the differenced density lines, so one gathered row gives
 density, appearance and the density gradient.
 
+``fixed_shape=True`` allocates the factor grids at the final resolution
+of the voxel schedule, zero-padded, with the logical resolution in the
+``live_reso`` buffer (f32 (3,)): queries map onto the live region, an
+upsample resamples it in place, the regularizers read it only, and no
+tensor ever changes shape. The zero padding is an invariant: the planes are
+masked before every filter (whose transpose would reach into the padding)
+and before ``abs`` (whose gradient at 0 is not 0), so the padding's
+gradient is exactly zero.
+
 Not ported yet: ``compute_normals`` on its own, autodiff normals
-(``numer_grad=False``), ``fixed_shape`` padding, ``shrink``, ``dbasis``,
-and the TV / orthogonality regularizers.
+(``numer_grad=False``), ``shrink`` (only the occupancy-grid sampler calls
+it) and ``dbasis``.
 """
 import math
 
@@ -34,6 +43,33 @@ VEC_MODE = (2, 1, 0)
 GATHER_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
+def _live_mask(n, live):
+    return torch.arange(n, dtype=torch.float32, device=live.device) < live
+
+
+def mask_live_2d(plane, live_hw):
+    """Zero a padded (C, H, W) plane beyond its live (H, W)."""
+    if live_hw is None:
+        return plane
+    H, W = plane.shape[-2:]
+    return plane * (_live_mask(H, live_hw[0])[:, None]
+                    & _live_mask(W, live_hw[1])[None, :])
+
+
+def mask_live_1d(line, live_l):
+    if live_l is None:
+        return line
+    return line * _live_mask(line.shape[-1], live_l)
+
+
+def plane_lives(live, i):
+    """(live (H, W) of plane i, live L of line i), or (None, None)."""
+    if live is None:
+        return None, None
+    m0, m1 = MAT_MODE[i]
+    return (live[m1], live[m0]), live[VEC_MODE[i]]
+
+
 class FactorGrid(nn.Module):
     """One plane + line factor set: planes (C, H, W), lines (C, L)."""
 
@@ -46,19 +82,21 @@ class FactorGrid(nn.Module):
     def n_comp(self) -> int:
         return self.planes[0].shape[0]
 
-    def query(self, coords, dtype=None):
+    def query(self, coords, dtype=None, live=None):
         """coords: (..., 3) normalized to [-1, 1] -> list of 3 (..., C)
         factor products, gathered in ``dtype`` (default: the parameters')
-        and accumulated in f32."""
+        and accumulated in f32; ``live``: the field's live resolution per
+        world axis, for padded grids."""
         feats = []
         for i in range(3):
             m0, m1 = MAT_MODE[i]
+            lhw, ll = plane_lives(live, i)
             plane, line = self.planes[i], self.lines[i]
             if dtype is not None:
                 plane, line = plane.to(dtype), line.to(dtype)
             pc = quad_gather_2d(plane, torch.stack(
-                [coords[..., m0], coords[..., m1]], dim=-1))
-            lc = line_interp(line, coords[..., VEC_MODE[i]])
+                [coords[..., m0], coords[..., m1]], dim=-1), lhw)
+            lc = line_interp(line, coords[..., VEC_MODE[i]], ll)
             feats.append(pc * lc)
         return feats
 
@@ -78,6 +116,22 @@ def init_factor_grid(generator, grid_size: int, n_comp: int, init_mode: str,
     return FactorGrid(planes, lines)
 
 
+def pad_factor_grid(fg: FactorGrid, pad_gs):
+    """Zero-pad an exact-shape FactorGrid to the (X, Y, Z) resolution
+    ``pad_gs`` (in place)."""
+    with torch.no_grad():
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            p, ln = fg.planes[i], fg.lines[i]
+            buf = p.new_zeros((p.shape[0], int(pad_gs[m1]), int(pad_gs[m0])))
+            buf[:, :p.shape[1], :p.shape[2]] = p
+            lbuf = ln.new_zeros((ln.shape[0], int(pad_gs[VEC_MODE[i]])))
+            lbuf[:, :ln.shape[1]] = ln
+            fg.planes[i] = nn.Parameter(buf)
+            fg.lines[i] = nn.Parameter(lbuf)
+    return fg
+
+
 class TensorVMSplit(nn.Module):
     """Split density/appearance VM field."""
 
@@ -85,7 +139,8 @@ class TensorVMSplit(nn.Module):
                  grid_size, app_dim=24, activation="softplus",
                  density_shift=-4.0, distance_scale=25.0, step_ratio=0.5,
                  gather_dtype="bf16", n_voxel_list=(), upsamp_list=(),
-                 lr=0.02, lr_net=1e-3, smoothing=1.0, numer_grad=True):
+                 lr=0.02, lr_net=1e-3, smoothing=1.0, numer_grad=True,
+                 live_reso=None):
         super().__init__()
         if not numer_grad:
             raise NotImplementedError("field.numer_grad=false (autodiff "
@@ -112,6 +167,10 @@ class TensorVMSplit(nn.Module):
         self.upsamp_list = tuple(upsamp_list)
         self.lr = float(lr)
         self.lr_net = float(lr_net)
+        self.fixed_shape = live_reso is not None
+        self.register_buffer(
+            "live_reso", None if live_reso is None else torch.as_tensor(
+                live_reso, dtype=torch.float32))
 
     # ---- geometry (host-side python floats) ----
     def _aabb_np(self):
@@ -132,6 +191,27 @@ class TensorVMSplit(nn.Module):
     @property
     def n_samples(self) -> int:
         return int(self.aabb_diag / self.stepsize) + 1
+
+    def _live3(self):
+        """None, or the live resolution of each world axis (0-d f32)."""
+        return tuple(self.live_reso) if self.fixed_shape else None
+
+    @property
+    def live_grid_size(self):
+        """The logical resolution (host side)."""
+        if not self.fixed_shape:
+            return tuple(self.grid_size)
+        return tuple(int(v) for v in self.live_reso.tolist())
+
+    def live_step_scale(self) -> float:
+        """stepsize at the live resolution over stepsize at grid_size."""
+        if not self.fixed_shape:
+            return 1.0
+        extent = self._aabb_np()
+        extent = extent[1] - extent[0]
+        live = np.asarray(self.live_reso.tolist(), np.float64)
+        return float((extent / (live - 1)).min() * self.step_ratio
+                     ) / self.stepsize
 
     # ---- queries ----
     def normalize_coord(self, xyz):
@@ -154,12 +234,13 @@ class TensorVMSplit(nn.Module):
         same values compute_all gives)."""
         coords = self.normalize_coord(xyz)[..., :3]
         gd = GATHER_DTYPES[self.gather_dtype] if use_gather_dtype else None
-        return self.feature2density(
-            self._contract_density(self.density_rf.query(coords, gd)))
+        return self.feature2density(self._contract_density(
+            self.density_rf.query(coords, gd, self._live3())))
 
     def compute_appfeature(self, xyz):
         coords = self.normalize_coord(xyz)[..., :3]
-        return torch.cat(self.app_rf.query(coords), dim=-1) @ self.basis_mat
+        return torch.cat(self.app_rf.query(coords, live=self._live3()),
+                         dim=-1) @ self.basis_mat
 
     def _dkernels(self):
         """(kx, ky, k1): the smoothed plane derivative kernels and the line
@@ -179,19 +260,22 @@ class TensorVMSplit(nn.Module):
         gd = GATHER_DTYPES[self.gather_dtype]
         if with_normals:
             kx, ky, k1 = self._dkernels()
+        live = self._live3()
         d_feats, a_feats = [], []
         dgrads = [[], [], []]
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             v = VEC_MODE[i]
+            lhw, ll = plane_lives(live, i)
             dp, dl = d_rf.planes[i], d_rf.lines[i]
             parts_p, parts_l = [dp, a_rf.planes[i]], [dl, a_rf.lines[i]]
             if with_normals:
-                parts_p += [conv2d_same(dp, kx), conv2d_same(dp, ky)]
-                parts_l.append(conv1d_same(dl, k1))
+                mdp = mask_live_2d(dp, lhw)
+                parts_p += [conv2d_same(mdp, kx), conv2d_same(mdp, ky)]
+                parts_l.append(conv1d_same(mask_live_1d(dl, ll), k1))
             pc = quad_gather_2d(torch.cat(parts_p).to(gd), torch.stack(
-                [coords[..., m0], coords[..., m1]], dim=-1))
-            lc = line_interp(torch.cat(parts_l).to(gd), coords[..., v])
+                [coords[..., m0], coords[..., m1]], dim=-1), lhw)
+            lc = line_interp(torch.cat(parts_l).to(gd), coords[..., v], ll)
             p_d, l_d = pc[..., :Cd], lc[..., :Cd]
             d_feats.append(p_d * l_d)
             a_feats.append(pc[..., Cd:Cd + Ca] * lc[..., Cd:Cd + Ca])
@@ -207,12 +291,68 @@ class TensorVMSplit(nn.Module):
                          for j in range(3)], dim=-1)
         return sigma, app, normalize(-g)
 
-    # ---- regularizers ----
+    # ---- regularizers: over the live region only, normalized by live
+    # counts, so a padded grid gives the exact-shape values ----
     def density_L1(self):
+        live = self._live3()
         total = 0.0
         for i in range(3):
-            total = (total + self.density_rf.planes[i].abs().mean()
-                     + self.density_rf.lines[i].abs().mean())
+            pl, ln = self.density_rf.planes[i], self.density_rf.lines[i]
+            if live is None:
+                total = total + pl.abs().mean() + ln.abs().mean()
+                continue
+            lhw, ll = plane_lives(live, i)
+            total = (total
+                     + mask_live_2d(pl, lhw).abs().sum()
+                     / (pl.shape[0] * lhw[0] * lhw[1])
+                     + mask_live_1d(ln, ll).abs().sum() / (ln.shape[0] * ll))
+        return total
+
+    @staticmethod
+    def _tv(x2d, live_hw=None):
+        h_tv = x2d[..., 1:, :-1] - x2d[..., :-1, :-1]
+        w_tv = x2d[..., :-1, 1:] - x2d[..., :-1, :-1]
+        val = torch.sqrt(w_tv ** 2 + h_tv ** 2 + 1e-5)
+        if live_hw is None:
+            return val.mean()
+        lh, lw = live_hw
+        C, H1, W1 = val.shape
+        m = (_live_mask(H1, lh - 1)[:, None] & _live_mask(W1, lw - 1)[None])
+        return (val * m).sum() / (C * (lh - 1) * (lw - 1))
+
+    @staticmethod
+    def _tv_line(line, live_l=None):
+        val = (line[..., 1:] - line[..., :-1]).abs()
+        if live_l is None:
+            return val.mean()
+        C, L1 = val.shape
+        return (val * _live_mask(L1, live_l - 1)).sum() / (C * (live_l - 1))
+
+    def _tv_loss(self, fg):
+        total = 0.0
+        for i in range(3):
+            lhw, ll = plane_lives(self._live3(), i)
+            total = (total + self._tv(fg.planes[i], lhw) * 1e-2
+                     + self._tv_line(fg.lines[i], ll) * 1e-3)
+        return total
+
+    def tv_loss_density(self):
+        return self._tv_loss(self.density_rf)
+
+    def tv_loss_app(self):
+        return self._tv_loss(self.app_rf)
+
+    def vector_comp_diffs(self):
+        """Orthogonality of the line components: the mean |off-diagonal|
+        of each line set's Gram matrix."""
+        total = 0.0
+        for fg in (self.density_rf, self.app_rf):
+            for i in range(3):
+                vec = fg.lines[i]
+                dotp = vec @ vec.t()
+                n = vec.shape[0]
+                off = dotp - torch.diag(torch.diag(dotp))
+                total = total + off.abs().sum() / max(n * (n - 1), 1)
         return total
 
     # ---- schedule events (host side, in place) ----
@@ -227,7 +367,24 @@ class TensorVMSplit(nn.Module):
     def upsample(self, res_target):
         """Resample every plane and line to ``res_target`` (align_corners
         bilinear); the parameters are replaced, so the optimizer must be
-        rebuilt."""
+        rebuilt. A padded grid resamples its live region in place, capped
+        at its padded size."""
+        if self.fixed_shape:
+            old = self.live_grid_size
+            new = tuple(min(int(n), g) for n, g in zip(res_target,
+                                                       self.grid_size))
+            for fg in (self.density_rf, self.app_rf):
+                for i in range(3):
+                    m0, m1 = MAT_MODE[i]
+                    v = VEC_MODE[i]
+                    p, ln = fg.planes[i], fg.lines[i]
+                    resized = resize_align_corners_2d(
+                        p[:, :old[m1], :old[m0]], (new[m1], new[m0]))
+                    p.zero_()[:, :new[m1], :new[m0]] = resized
+                    rline = resize_align_corners_1d(ln[:, :old[v]], new[v])
+                    ln.zero_()[:, :new[v]] = rline
+            self.live_reso.copy_(torch.tensor(new, dtype=torch.float32))
+            return
         for fg in (self.density_rf, self.app_rf):
             for i in range(3):
                 m0, m1 = MAT_MODE[i]
@@ -243,10 +400,11 @@ def init_tensorvm_split(generator, aabb, density_n_comp=16,
                         N_voxel_init=128 ** 3, N_voxel_final=300 ** 3,
                         upsamp_list=(500, 1000, 2000, 3000, 4000, 5500, 7000),
                         init_mode="rand", d_init_val=0.1, app_init_val=0.1,
-                        **kwargs):
+                        fixed_shape=False, **kwargs):
     """Build a TensorVMSplit (nmf_tpu's ``init_tensorvm_split``): square
     planes of the first axis' resolution, torch-Linear-style uniform basis
-    matrices, the voxel schedule's resolutions."""
+    matrices, the voxel schedule's resolutions. ``fixed_shape`` draws the
+    grids at the initial resolution and zero-pads them to the final one."""
     aabb = np.asarray(aabb, np.float32)
     if grid_size is None:
         grid_size = n_to_reso(N_voxel_init, aabb)
@@ -255,6 +413,14 @@ def init_tensorvm_split(generator, aabb, density_n_comp=16,
                                   d_init_val)
     app_rf = init_factor_grid(generator, gsize, appearance_n_comp, init_mode,
                               app_init_val)
+    live_reso = None
+    if fixed_shape:
+        pad_gs = tuple(max(int(p), int(g)) for p, g in
+                       zip(n_to_reso(N_voxel_final, aabb), grid_size))
+        live_reso = [float(g) for g in grid_size]
+        pad_factor_grid(density_rf, pad_gs)
+        pad_factor_grid(app_rf, pad_gs)
+        grid_size = pad_gs
     bound_b = 1.0 / math.sqrt(3 * appearance_n_comp)
     basis_mat = (torch.rand((3 * appearance_n_comp, app_dim),
                             generator=generator) * 2 - 1) * bound_b
@@ -268,4 +434,5 @@ def init_tensorvm_split(generator, aabb, density_n_comp=16,
     return TensorVMSplit(density_rf, app_rf, basis_mat, dbasis_mat, aabb,
                          grid_size, app_dim=app_dim,
                          n_voxel_list=n_voxel_list,
-                         upsamp_list=tuple(upsamp_list), **kwargs)
+                         upsamp_list=tuple(upsamp_list), live_reso=live_reso,
+                         **kwargs)

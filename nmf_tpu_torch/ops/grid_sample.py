@@ -11,6 +11,12 @@ backward is the row scatter-add kernel ``binsum_rows``. The field's normals
 come from planes and lines filtered by ``smoothed_derivative_kernels_2d``
 with ``conv2d_same`` / ``conv1d_same`` (zero-padded correlations, in f32
 on the card: cuDNN's TF32 is off for them).
+
+``live_hw`` / ``live_l`` serve the field's fixed-shape mode: the table is
+allocated at its final size and zero-padded, and coordinates map onto its
+first ``live`` rows and columns (0-d f32 tensors, so an upsample changes a
+value, not a shape). The padded tail only ever appears as the zero-weight
+far corner of the last live texel.
 """
 import numpy as np
 import torch
@@ -44,27 +50,31 @@ class TakeRows(torch.autograd.Function):
         return d.to(g.dtype), None
 
 
-def grid_sample_1d(line, coords):
-    """line: (C, L); coords: (...) in [-1, 1] -> (..., C). Zeros padding."""
+def grid_sample_1d(line, coords, live_l=None):
+    """line: (C, L); coords: (...) in [-1, 1] -> (..., C). Zeros padding
+    beyond the first ``live_l`` entries (default: all)."""
     C, L = line.shape
-    x = _unnormalize(coords, L)
+    Ll = L if live_l is None else live_l
+    x = _unnormalize(coords, Ll)
     x0 = torch.floor(x)
     w1 = x - x0
     i0 = x0.long()
     i1 = i0 + 1
-    v0 = ((i0 >= 0) & (i0 <= L - 1)).to(line.dtype)
-    v1 = ((i1 >= 0) & (i1 <= L - 1)).to(line.dtype)
+    v0 = ((i0 >= 0) & (i0 <= Ll - 1)).to(line.dtype)
+    v1 = ((i1 >= 0) & (i1 <= Ll - 1)).to(line.dtype)
     g0 = line[:, i0.clamp(0, L - 1)]
     g1 = line[:, i1.clamp(0, L - 1)]
     out = g0 * (v0 * (1 - w1)) + g1 * (v1 * w1)
     return torch.movedim(out, 0, -1)
 
 
-def grid_sample_2d(plane, coords):
-    """plane: (C, H, W); coords: (..., 2) as (x, y) -> (..., C)."""
+def grid_sample_2d(plane, coords, live_hw=None):
+    """plane: (C, H, W); coords: (..., 2) as (x, y) -> (..., C), over the
+    live (H, W) of a padded plane (default: all of it)."""
     C, H, W = plane.shape
-    x = _unnormalize(coords[..., 0], W)
-    y = _unnormalize(coords[..., 1], H)
+    Hl, Wl = (H, W) if live_hw is None else live_hw
+    x = _unnormalize(coords[..., 0], Wl)
+    y = _unnormalize(coords[..., 1], Hl)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     wx = x - x0
@@ -77,7 +87,7 @@ def grid_sample_2d(plane, coords):
         ix = ix0 + dx
         iy = iy0 + dy
         w = (wx if dx else (1 - wx)) * (wy if dy else (1 - wy))
-        valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
+        valid = (ix >= 0) & (ix <= Wl - 1) & (iy >= 0) & (iy <= Hl - 1)
         idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
         g = flat[:, idx]
         out = out + g * torch.where(valid, w, torch.zeros_like(w))
@@ -113,20 +123,28 @@ def grid_sample_3d(vol, coords):
     return torch.movedim(out, 0, -1)
 
 
-def _quad_prep(plane_shape, coords):
-    """Flat corner index and bilinear weights of quad_gather_2d."""
+def _clip_index(xf, live, size):
+    """floor(x) clipped to [0, live - 1] in f32, then to [0, size - 1]."""
+    if live is not None:
+        xf = torch.minimum(torch.clamp(xf, min=0), live - 1)
+    return torch.clamp(xf, 0, size - 1).to(torch.int32)
+
+
+def _quad_prep(plane_shape, coords, live_hw=None):
+    """Flat corner index and bilinear weights of quad_gather_2d. The gather
+    stride stays the padded W; coordinates unnormalize against the live
+    extents."""
     C, H, W = plane_shape
+    Hl, Wl = (None, None) if live_hw is None else live_hw
     cx = torch.clamp(coords[..., 0], -1, 1)
     cy = torch.clamp(coords[..., 1], -1, 1)
-    x = _unnormalize(cx, W)
-    y = _unnormalize(cy, H)
+    x = _unnormalize(cx, W if Wl is None else Wl)
+    y = _unnormalize(cy, H if Hl is None else Hl)
     x0f = torch.floor(x)
     y0f = torch.floor(y)
     wx = x - x0f
     wy = y - y0f
-    ix0 = torch.clamp(x0f, 0, W - 1).to(torch.int32)
-    iy0 = torch.clamp(y0f, 0, H - 1).to(torch.int32)
-    return ix0, iy0, wx, wy
+    return _clip_index(x0f, Wl, W), _clip_index(y0f, Hl, H), wx, wy
 
 
 def _quad_table(plane):
@@ -155,21 +173,21 @@ def _quad_combine(rows, wx, wy, C):
             + r[..., 3 * C:4 * C] * w11[..., None])
 
 
-def quad_gather_2d(plane, coords):
+def quad_gather_2d(plane, coords, live_hw=None):
     """Bilinear 2D sample with ONE table row gathered per sample.
 
     plane: (C, H, W) in the gather dtype; coords: (..., 2) as (x, y)
     -> (..., C) float32. Equals grid_sample_2d for coords in [-1, 1].
     """
     C, H, W = plane.shape
-    ix0, iy0, wx, wy = _quad_prep(plane.shape, coords)
+    ix0, iy0, wx, wy = _quad_prep(plane.shape, coords, live_hw)
     idx = (iy0 * W + ix0).reshape(-1)
     rows = TakeRows.apply(_quad_table(plane), idx)
     rows = rows.reshape(coords.shape[:-1] + (4 * C,))
     return _quad_combine(rows, wx, wy, C)
 
 
-def line_interp(line, coords):
+def line_interp(line, coords, live_l=None):
     """Linear 1D sample, the semantics of nmf_tpu's ``line_interp_matmul``.
 
     line: (C, L) in the gather dtype; coords: (...) in [-1, 1] (clamped)
@@ -179,10 +197,11 @@ def line_interp(line, coords):
     is gathered per sample.
     """
     C, L = line.shape
-    x = _unnormalize(torch.clamp(coords, -1, 1), L)
+    x = _unnormalize(torch.clamp(coords, -1, 1),
+                     L if live_l is None else live_l)
     x0f = torch.floor(x)
     w1 = x - x0f
-    i0 = torch.clamp(x0f, 0, L - 1).to(torch.int32)
+    i0 = _clip_index(x0f, live_l, L)
     lt = line.t()
     table = torch.cat([lt, torch.roll(lt, -1, dims=0)], dim=1).contiguous()
     rows = TakeRows.apply(table, i0.reshape(-1)).float()

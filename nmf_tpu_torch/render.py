@@ -81,7 +81,7 @@ def reflection_fn(nmf: NMF, is_train, recur, bg_cache, thin_out):
                                   bg_cache), None
         ims, stats = render(
             nmf, bounce_rays, is_train=is_train, bg_col=None, draws=draws,
-            recur=recur + 1, override_near=3 * nmf.sampler.stepsize,
+            recur=recur + 1, override_near=3 * nmf.sampler.live_stepsize,
             stepmul=nmf.recur_stepmul, tonemap=False, start_mipval=mipval,
             bg_cache=bg_cache)
         if "thin_scale" in stats:
@@ -91,16 +91,49 @@ def reflection_fn(nmf: NMF, is_train, recur, bg_cache, thin_out):
     return render_reflection
 
 
+def debug_maps(weight, valid, acc_map, z_vals, xyz_normed, world_normal,
+               rgb, debug, bg):
+    """The eval maps of nmf_tpu's ``render(draw_debug=True)``: depth, the
+    composited world normal (``world_normal``; zeros for a model without
+    normals) and predicted normal (``normal``: zeros, there is no normal
+    module), both over a background of ones, the valid sample count, the
+    z < 0 cross-section and the shading model's per-sample maps (tint,
+    spec, diffuse, roughness, albedo) composited over ``bg``."""
+    B, K = weight.shape
+    eweight = weight[..., None]
+    pw = torch.where(valid, weight, torch.zeros_like(weight))[..., None]
+    bg1 = (1 - acc_map[..., None])
+    if world_normal is None:
+        wn = torch.zeros_like(acc_map)[:, None].expand(B, 3)
+    else:
+        wn = row_mask_sum(world_normal.reshape(B, K, 3) * pw, valid)
+    pn = torch.zeros_like(wn)
+    cs_mask = (xyz_normed.reshape(B, K, -1)[..., 2] < 0) & valid
+    maps = {
+        "depth": (weight * z_vals).sum(dim=1),
+        "world_normal": acc_map[..., None] * wn + bg1,
+        "normal": acc_map[..., None] * pn + bg1,
+        "surf_width": valid.sum(dim=1),
+        "cross_section": row_mask_sum(
+            cs_mask[..., None] * eweight
+            * torch.clamp(rgb.reshape(B, K, 3), 0, 1), valid)}
+    for k, v in debug.items():
+        if not k.startswith("__"):
+            im = row_mask_sum(v.reshape(B, K, -1) * eweight, valid)
+            maps[k] = im + bg1 * bg
+    return maps
+
+
 def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
            draws=None, recur=0, override_near=None, stepmul=1.0,
            tonemap=True, start_mipval=None, draw_debug=False, bg_cache=None):
     """Render a ray batch (B, 6) -> (images, stats).
 
-    images: rgb_map (B, 3), acc_map (B,) and, with ``draw_debug``, depth
-    (B,). stats (recursion level 0): ori_loss, distortion_loss,
-    envmap_reg, brdf_reg, diffuse_reg, n_valid_samples and, for microfacet
-    shading, thin_scale (and thin_scale_retrace). ``bg_col`` None takes the
-    background from the envmap.
+    images: rgb_map (B, 3), acc_map (B,) and, with ``draw_debug``, the
+    maps of ``debug_maps``. stats (recursion level 0): ori_loss,
+    distortion_loss, envmap_reg, brdf_reg, diffuse_reg, n_valid_samples
+    and, for microfacet shading, thin_scale (and thin_scale_retrace).
+    ``bg_col`` None takes the background from the envmap.
 
     Random draws (the march jitter, the resampling offsets, the shading
     model's) come from ``draws`` (``ops/draws.py``); a pass without any
@@ -201,7 +234,8 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
         })
     images = {}
     if draw_debug:
-        images["depth"] = (weight * z_vals).sum(dim=1)
+        images.update(debug_maps(weight, valid, acc_map, z_vals, xyz_normed,
+                                 world_normal, rgb, debug, bg))
     if tonemap:
         rgb_map = srgb_tonemap(rgb_map)
     images["rgb_map"] = rgb_map + (1 - acc_map[..., None]) * bg

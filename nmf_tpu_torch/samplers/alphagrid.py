@@ -12,6 +12,12 @@ uses).
 
 The sampler is an ``nn.Module`` whose alpha volumes and boxes are buffers;
 schedule events update it in place.
+
+With a fixed-shape field (``rf.fixed_shape``) the step count and step size
+are those of the padded (final) grid, and the ``step_scale`` buffer (0-d
+f32, the live step over the padded one) scales the march step to the
+field's live resolution; the alpha mask lives at the final resolution, and
+its dilation radius is scaled to the live cell.
 """
 import numpy as np
 import torch
@@ -75,18 +81,36 @@ class AlphaGridSampler(nn.Module):
         self.multiplier = int(multiplier)
         self.stepsize = 0.01
         self.n_samples = 440
+        self.register_buffer("step_scale", None)
+
+    @property
+    def live_stepsize(self):
+        """The march step at the field's live resolution."""
+        if self.step_scale is None:
+            return self.stepsize
+        return self.stepsize * self.step_scale
+
+    def _scale(self) -> float:
+        return 1.0 if self.step_scale is None else float(self.step_scale)
 
     # ------------------------------------------------------------------
     def update(self, rf, init: bool = False):
         """Adopt the field's geometry; unless ``init``, also rebuild the
-        alpha mask. At init a missing mask becomes an all-occupied 32^3."""
+        alpha mask. At init a missing mask becomes an all-occupied 32^3, or
+        one at the padded grid's resolution for a fixed-shape field."""
         self.aabb = rf.aabb.detach().clone()
         self.n_samples = rf.n_samples * self.multiplier
         self.stepsize = rf.stepsize / self.multiplier
+        fixed = getattr(rf, "fixed_shape", False)
+        self.step_scale = (torch.tensor(rf.live_step_scale(),
+                                        dtype=torch.float32,
+                                        device=self.aabb.device)
+                           if fixed else None)
         if not init:
             self.update_alpha_mask(rf)
         elif self.alpha_mask is None:
-            ones = torch.ones((32, 32, 32), device=self.aabb.device)
+            gs = tuple(rf.grid_size)[::-1] if fixed else (32, 32, 32)
+            ones = torch.ones(gs, device=self.aabb.device)
             self.alpha_mask = AlphaGridMask(self.aabb, ones, ones.clone())
         return self
 
@@ -103,8 +127,8 @@ class AlphaGridSampler(nn.Module):
         aabb = self.aabb.detach().cpu().numpy().astype(np.float64)
         unit_min = float(((aabb[1] - aabb[0])
                           / (np.asarray(gs, np.float64) - 1)).min())
-        return int(np.ceil(0.75 * SUPERSTEP * self.stepsize / unit_min
-                           + 0.5))
+        return int(np.ceil(0.75 * SUPERSTEP * self.stepsize * self._scale()
+                           / unit_min + 0.5))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -121,7 +145,7 @@ class AlphaGridSampler(nn.Module):
         sigma = torch.cat([
             rf.compute_densityfeature(xyz[i:i + step].reshape(-1, 3))
             for i in range(0, X, step)]).reshape(tuple(grid_size))
-        alpha = 1 - torch.exp(-sigma * self.stepsize)
+        alpha = 1 - torch.exp(-sigma * self.stepsize * self._scale())
         return alpha, xyz
 
     @torch.no_grad()
@@ -131,7 +155,8 @@ class AlphaGridSampler(nn.Module):
         gs = tuple(rf.grid_size)
         alpha, dense_xyz = self.compute_dense_alpha(rf, gs)
         alpha_t = torch.clamp(alpha, 0, 1).permute(2, 1, 0).contiguous()
-        alpha_t = max_pool_3d(alpha_t, 3)
+        # one cell of dilation at the field's live resolution
+        alpha_t = max_pool_3d(alpha_t, 2 * int(np.ceil(self._scale())) + 1)
         alpha_bin = (alpha_t >= self.alpha_mask_thres).float()
         coarse = max_pool_3d(alpha_bin, 2 * self._coarse_dilate_radius(gs) + 1)
         self.alpha_mask = AlphaGridMask(self.aabb, alpha_bin, coarse)
@@ -169,9 +194,12 @@ class AlphaGridSampler(nn.Module):
         vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
         rate_a = (self.aabb[1] - rays_o) / vec
         rate_b = (self.aabb[0] - rays_o) / vec
-        t_min = torch.clamp(torch.minimum(rate_a, rate_b).amax(-1), near, far)
+        t_min = torch.minimum(torch.maximum(
+            torch.minimum(rate_a, rate_b).amax(-1),
+            torch.as_tensor(near, dtype=torch.float32, device=dev)),
+            torch.as_tensor(far, dtype=torch.float32, device=dev))
 
-        stepsize = self.stepsize / stepmul
+        stepsize = self.live_stepsize / stepmul
         if is_train:
             step = torch.cumsum(jitter * stepsize + stepsize / 2, dim=1)
         else:

@@ -4,8 +4,8 @@
     python -m nmf_tpu_torch.scripts.profile_step [--steps 10] \
         [model=microfacet_tensorf2] [overrides...]
 
-Trains on synthetic_sphere at the shipped widths with chip_smoke.py's
-schedule and profiles ``--steps`` steps at two points. model=tensorf (the
+Trains on synthetic_sphere (or the dataset the overrides name) at the
+shipped widths with chip_smoke.py's schedule and profiles ``--steps`` steps at two points. model=tensorf (the
 default): alpha-mask rebuilds at 100 and 200, upsample to 300^3 at 150;
 windows after the first rebuild (128^3 grid) and after the upsample and
 the second rebuild (300^3). model=microfacet_tensorf2: upsample at 300, no
@@ -133,7 +133,10 @@ def main(argv=None):
 
     def step():
         b = torch.from_numpy(ids.nextids(batch.size)).to(dev)
-        return trainer.train_step(nmf, opt, rays_all[b], rgb_all[b],
+        rgb = rgb_all[b]
+        if rgb.shape[-1] == 4:  # RGBA scenes, over the white background
+            rgb = rgb[:, :3] * rgb[:, 3:] + (1 - rgb[:, 3:])
+        return trainer.train_step(nmf, opt, rays_all[b], rgb,
                                   (1.0, 1.0, 1.0),
                                   make_loss_weights(params,
                                                     state["l1_rest"]),

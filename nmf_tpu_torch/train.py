@@ -1,4 +1,5 @@
-"""Training entry point (``nmf_tpu/train.py:reconstruction``).
+"""Training entry point (``nmf_tpu/train.py``: ``reconstruction``,
+``render_test`` and their dispatch).
 
     python -m nmf_tpu_torch.train model=microfacet_tensorf2 \
         dataset=synthetic_sphere model.params.n_iters=3000 expname=run1 \
@@ -7,16 +8,32 @@
 Host loop: the microfacet model's bias calibration against the envmap
 brightness, batching (with the adaptive batch controller when the config
 sets ``target_num_samples``), the train step, progress lines (psnr, loss,
-rays/s, the bounce-ray thinning factors), schedule events (voxel upsample,
-alpha-mask rebuild) followed by an optimizer rebuild, the switch to
-``L1_weight_rest`` and a batch reset, and the final test evaluation. Runs
-on ``cuda`` unless the config says ``device=cpu``. Every random draw comes
-from one ``torch.Generator`` on the device, seeded by ``seed``.
+rays/s, the bounce-ray thinning factors) also written to the run folder's
+``metrics.jsonl``, schedule events (voxel upsample, alpha-mask rebuild)
+followed by a fresh optimizer, the switch to ``L1_weight_rest`` and a
+batch reset, ``vis_every`` evals, checkpoints (``save_every`` writes
+``{expname}_latest.th``, the end of the run ``{expname}.th``), and the
+final test evaluation at the ``eval_tier`` budgets. ``stop_iter`` pauses
+the run with a ``_latest.th``; ``resume=True`` continues from it, and
+``ckpt=`` starts from a checkpoint. ``render_only=True ckpt=...``
+evaluates a checkpoint instead of training. Runs on ``cuda`` unless the
+config says ``device=cpu``.
 
-Not ported yet: checkpoints and resume, mid-run visual evals, the device
-mesh, the bounce-budget controller (``adapt_brdf_budget``), TV/ortho/pred/
-ori decays, render_only and multirun.
+Random streams: the march jitter and the shading model's draws come from
+one ``torch.Generator`` on the device, the ray batches and the background
+colours from numpy generators. A fresh run seeds them with ``seed``; a run
+resumed at ``start_iter`` seeds them with ``stream_seed(seed,
+start_iter)``, so two resumes from one checkpoint train identically (the
+streams are not those of an unpaused run: nmf_tpu folds its key with the
+iteration instead).
+
+Not ported yet: ``render_path``, ``fixed_bg`` relighting (it reads a
+pickled flax pytree), a ``gt_bg`` read from an image file and streaming
+render raise ``NotImplementedError``, and so do the parameters of the
+bounce-budget controller (``adapt_brdf_budget``) and of the ori/pred
+decays; the port runs on one card (no device mesh) and has no multirun.
 """
+import datetime
 import math
 import sys
 import time
@@ -25,11 +42,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import ckpt as ckpt_lib
 from . import config as config_lib
 from . import eval as eval_lib
 from . import trainer
 from .builders import build_nmf
 from .data import load_dataset
+from .logging_utils import RunLogger
 from .ops.draws import Draws
 
 
@@ -47,7 +66,7 @@ def make_optimizer(nmf, params, n_iters):
         clip_grad=params.get("clip_grad")))
 
 
-def make_loss_weights(params, l1_rest=False):
+def make_loss_weights(params, l1_rest=False, tv_mult=1.0):
     for key in ("final_ori_lambda", "final_pred_lambda", "adapt_brdf_budget",
                 "charbonier_loss", "TV_weight_bg", "normal_err_lambda"):
         if params.get(key):
@@ -60,8 +79,8 @@ def make_loss_weights(params, l1_rest=False):
         distortion_lambda=params.get("distortion_lambda", 0.0),
         l1_weight=l1,
         ortho_weight=params.get("ortho_weight", 0.0),
-        tv_weight_density=params.get("TV_weight_density", 0.0),
-        tv_weight_app=params.get("TV_weight_app", 0.0),
+        tv_weight_density=params.get("TV_weight_density", 0.0) * tv_mult,
+        tv_weight_app=params.get("TV_weight_app", 0.0) * tv_mult,
         ori_lambda=params.get("ori_lambda", 0.0),
         envmap_lambda=params.get("envmap_lambda", 0.0),
         diffuse_lambda=params.get("diffuse_lambda", 0.0),
@@ -110,44 +129,146 @@ class BatchController:
         self.size = self.start
 
 
+def stream_seed(seed: int, start_iter: int) -> int:
+    """Seed of a run's random streams: ``seed`` for a fresh run; for a run
+    resumed at ``start_iter``, a number drawn from numpy's SeedSequence of
+    (seed, start_iter)."""
+    if start_iter == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), int(start_iter)])
+               .generate_state(1, np.uint32)[0])
+
+
+def schedule_events(nmf):
+    """The iterations at which the field or the sampler changes."""
+    return set(nmf.rf.upsamp_list) | set(nmf.sampler.update_list)
+
+
+def _final_n_vis(cfg):
+    """View count of the final eval and of render_only: final_N_vis, else
+    N_vis."""
+    final_n = cfg.get("final_N_vis")
+    return cfg.get("N_vis", -1) if final_n is None else final_n
+
+
+def check_unported(cfg):
+    """Raise for the top-level knobs that this port does not carry yet."""
+    for key, why in (
+            ("render_path", "render_path (the orbit video) comes with a "
+                            "later slice (ROADMAP A.2)"),
+            ("fixed_bg", "fixed_bg relighting reads a format-1 checkpoint "
+                         "(a pickled flax pytree that needs JAX); it comes "
+                         "with scripts/pano2env.py (ROADMAP A.4)"),
+            ("gt_bg", "a gt_bg read from an image file needs the EXR/PNG "
+                      "loaders (ROADMAP A.2)"),
+            ("stream", "streaming render (render_streaming.py) comes with "
+                       "a later slice (ROADMAP A.2)")):
+        if cfg.get(key):
+            raise NotImplementedError(f"{key}={cfg[key]!r}: {why}")
+
+
+def _resolve_gt_bg(cfg, test_ds):
+    """The ground-truth panorama of the envmap metrics: the procedural
+    scene's own ``gt_bg_im``. A dataset whose yaml names a background file
+    that exists under ``datadir/backgrounds`` raises: reading it needs the
+    image loaders (ROADMAP A.2)."""
+    name = cfg["dataset"].get("gt_bg")
+    if name and (Path(cfg.get("datadir", "/data")) / "backgrounds"
+                 / name).exists():
+        raise NotImplementedError(
+            f"dataset.gt_bg={name!r}: reading a background image needs the "
+            "EXR/PNG loaders (ROADMAP A.2)")
+    return test_ds.get("gt_bg_im")
+
+
+def _expname(cfg):
+    expname = f"{cfg['dataset']['scenedir'].split('/')[-1]}_{cfg['expname']}"
+    if cfg.get("add_timestamp"):
+        expname += datetime.datetime.now().strftime("-%Y%m%d-%H%M%S")
+    return expname
+
+
 def reconstruction(cfg, log=print):
     """Train, then evaluate the test split. Returns (nmf, results): the
     final test metrics plus the last logged train loss, rays/s, batch and
-    thinning factors, and the training loop's seconds."""
+    thinning factors, and the training loop's seconds. A ``stop_iter``
+    pause returns the train metrics and ``paused_at``."""
     params = cfg["model"]["params"]
+    tier = cfg.get("eval_tier", "train")
+    eval_lib.validate_eval_tier(tier)
+    check_unported(cfg)
     device = torch.device(cfg.get("device", "cuda"))
-    expname = f"{cfg['dataset']['scenedir'].split('/')[-1]}_{cfg['expname']}"
+    expname = _expname(cfg)
     logfolder = Path(cfg.get("basedir", "./log")) / expname
     logfolder.mkdir(parents=True, exist_ok=True)
     config_lib.save_config(cfg, logfolder / "config.yaml")
+    run_log = RunLogger(logfolder, echo=log)
+    log = run_log.info
 
-    train_ds = load_dataset(cfg["dataset"], cfg.get("datadir"), split="train")
-    test_ds = load_dataset(cfg["dataset"], cfg.get("datadir"), split="test")
+    datadir = cfg.get("datadir")
+    train_ds = load_dataset(cfg["dataset"], datadir, split="train")
+    test_ds = load_dataset(cfg["dataset"], datadir, split="test")
     seed = int(cfg.get("seed", 20211200))
     near_far = tuple(cfg["dataset"].get("near_far", train_ds["near_far"]))
     aabb = (np.asarray(train_ds["scene_bbox"], np.float32)
             * float(cfg["dataset"].get("aabb_scale", 1)))
     nmf = build_nmf(cfg["model"]["arch"], aabb, near_far, seed=seed,
                     device=device)
-    draws = Draws(torch.Generator(device=device).manual_seed(seed))
-    calibrate_model(nmf, draws.scoped("calibrate"))
+
+    start_iter, extra = 0, {}
+    latest_path = logfolder / f"{expname}_latest.th"
+    if cfg.get("resume") and latest_path.exists():
+        nmf, _, extra = ckpt_lib.load(latest_path, device)
+        start_iter = int(extra.get("iteration", 0))
+        log(f"resume: {latest_path} at iter {start_iter}")
+    elif cfg.get("ckpt"):
+        nmf, _, _ = ckpt_lib.load(cfg["ckpt"], device)
+    nmf.sampler.update(nmf.rf, init=True)
+    run_seed = stream_seed(seed, start_iter)
+    draws = Draws(torch.Generator(device=device).manual_seed(run_seed))
+    if start_iter == 0:
+        calibrate_model(nmf, draws.scoped("calibrate"))
 
     n_iters = int(params["n_iters"])
     batch = BatchController(params)
     opt = make_optimizer(nmf, params, n_iters)
+    # lr_upsample_reset=true restarts the schedule at every event; false
+    # continues the global schedule across events
+    lr_reset = bool(params.get("lr_upsample_reset", True))
+    events = schedule_events(nmf)
+    if start_iter:
+        last_event = max((e for e in events if e <= start_iter), default=0)
+        opt.fast_forward(start_iter - last_event if lr_reset else start_iter)
+        batch.size = int(extra.get("cur_bs", batch.size))
+    lr_decay_iters = int(cfg.get("lr_decay_iters", -1) or -1)
+    if lr_decay_iters <= 0:
+        lr_decay_iters = n_iters
+    tv_decay = float(cfg.get("lr_decay_target_ratio",
+                             params.get("lr_decay_target_ratio", 0.1))
+                     ) ** (1.0 / lr_decay_iters)
+    tv_mult = tv_decay ** start_iter
     store_rays = torch.from_numpy(train_ds["all_rays"]).to(device)
     store_rgb = torch.from_numpy(train_ds["all_rgbs"]).to(device)
-    sampler = trainer.SimpleSampler(store_rays.shape[0], batch.size,
-                                    seed=cfg.get("seed", 0))
-    rng = np.random.default_rng(cfg.get("seed", 0))
+    sampler = trainer.SimpleSampler(
+        store_rays.shape[0], batch.size,
+        seed=stream_seed(cfg.get("seed", 0), start_iter))
+    rng = np.random.default_rng(stream_seed(cfg.get("seed", 0), start_iter))
     bg_mode = params.get("bg_col", "white")
     refresh = max(int(cfg.get("progress_refresh_rate", 50) or 50), 1)
+    vis_every = int(cfg.get("vis_every", 0) or 0)
+    save_every = int(cfg.get("save_every", 0) or 0)
+    stop_iter = int(cfg.get("stop_iter", 0) or 0)
+    iter_limit = min(n_iters, stop_iter) if stop_iter > 0 else n_iters
 
-    l1_rest = False
+    def resume_state(iteration):
+        return {"iteration": iteration, "cur_bs": int(batch.size),
+                "budget_mult": 1}
+
+    l1_rest = any(e <= start_iter for e in events) if start_iter else False
     rays_done = 0
     results = {}
     t_start = time.time()
-    for it in range(n_iters):
+    for it in range(start_iter, iter_limit):
         bg_col = trainer.bg_col_for(bg_mode, rng)
         ids = torch.from_numpy(sampler.nextids(batch.size)).to(device)
         rays, rgba = store_rays[ids], store_rgb[ids]
@@ -156,10 +277,11 @@ def reconstruction(cfg, log=print):
                   if rgba.shape[-1] == 4 else rgba)
         metrics = trainer.train_step(
             nmf, opt, rays, rgb_gt, tuple(float(c) for c in bg_col),
-            make_loss_weights(params, l1_rest), draws=draws)
+            make_loss_weights(params, l1_rest, tv_mult), draws=draws)
+        tv_mult *= tv_decay
         rays_done += rays.shape[0]
         batch.after_step(it, metrics["n_valid_samples"])
-        if it % refresh == 0 or it == n_iters - 1:
+        if it % refresh == 0 or it == iter_limit - 1:
             mse = float(metrics["photo_mse"])
             psnr = -10 * math.log10(max(mse, 1e-10))
             loss = float(metrics["loss"])
@@ -169,38 +291,103 @@ def reconstruction(cfg, log=print):
             results.update(loss=loss, train_psnr=psnr,
                            rays_per_sec=rays_per_sec, batch=rays.shape[0],
                            **thin)
+            run_log.scalars(it, psnr=psnr, loss=loss,
+                            rays_per_sec=round(rays_per_sec, 1),
+                            n_valid_samples=int(metrics["n_valid_samples"]),
+                            **{k: round(v, 4) for k, v in thin.items()})
             log(f"iter {it:06d} psnr={psnr:.2f} loss={loss:.5f} "
                 f"rays/s={rays_per_sec:.0f} batch={rays.shape[0]}"
                 + "".join(f" {k}={v:.3f}" for k, v in thin.items()))
         if nmf.check_schedule(it + 1):
             opt = make_optimizer(nmf, params, n_iters)
+            if not lr_reset:
+                opt.fast_forward(it + 1)
             l1_rest = True
             batch.reset()
             log(f"iter {it}: schedule event -> optimizer reinit; "
-                f"grid={nmf.rf.grid_size}")
+                f"grid={nmf.rf.live_grid_size}")
+        if (vis_every > 0 and cfg.get("N_vis", 0) != 0
+                and (it + 1) % vis_every == 0):
+            res = eval_lib.evaluate(
+                nmf, test_ds, save_dir=str(logfolder / "imgs_vis"),
+                n_vis=cfg.get("N_vis", 5), seed=seed, prefix=f"{it:06d}_",
+                compute_extra_metrics=False)
+            log(f"iter {it} test: {res}")
+            if cfg.get("save_often"):
+                ckpt_lib.save(logfolder / f"{expname}_{it}.th", nmf, cfg)
+        if save_every and (it + 1) % save_every == 0 and it + 1 < n_iters:
+            ckpt_lib.save(latest_path, nmf, cfg, extra=resume_state(it + 1))
 
     results["train_seconds"] = time.time() - t_start
+    if iter_limit < n_iters:
+        ckpt_lib.save(latest_path, nmf, cfg, extra=resume_state(iter_limit))
+        log(f"stop_iter pause at {iter_limit}/{n_iters}; resume=True "
+            "continues")
+        run_log.close()
+        results["paused_at"] = iter_limit
+        return nmf, results
+
+    ckpt_lib.save(logfolder / f"{expname}.th", nmf, cfg)
     if cfg.get("render_test", True):
-        final_n = cfg.get("final_N_vis")
-        if final_n is None:
-            final_n = cfg.get("N_vis", -1)
-        res = eval_lib.evaluate(nmf, test_ds,
-                                save_dir=str(logfolder / "imgs_test_all"),
-                                n_vis=final_n, seed=seed)
+        with eval_lib.apply_eval_tier(nmf, tier):
+            res = eval_lib.evaluate(
+                nmf, test_ds, save_dir=str(logfolder / "imgs_test_all"),
+                n_vis=_final_n_vis(cfg), seed=seed,
+                gt_bg=_resolve_gt_bg(cfg, test_ds))
         log(f"final test: {res}")
         results.update(res)
+    if cfg.get("render_train", False):
+        res_tr = eval_lib.evaluate(
+            nmf, train_ds, save_dir=str(logfolder / "imgs_train_all"),
+            n_vis=cfg.get("N_vis", -1), seed=seed)
+        log(f"train-split eval: {res_tr}")
+        results["train_split"] = res_tr
+    run_log.close()
     return nmf, results
+
+
+def render_test(cfg, log=print):
+    """Evaluate the checkpoint ``ckpt`` on the test split (the final eval's
+    view count, seed and ``eval_tier``) and, with ``render_train``, on the
+    train split. Returns (nmf, test metrics)."""
+    if not cfg.get("ckpt"):
+        raise SystemExit(
+            "render_only=True requires ckpt=<path to a .th checkpoint>")
+    tier = cfg.get("eval_tier", "train")
+    eval_lib.validate_eval_tier(tier)
+    check_unported(cfg)
+    device = torch.device(cfg.get("device", "cuda"))
+    nmf, _, _ = ckpt_lib.load(cfg["ckpt"], device)
+    datadir = cfg.get("datadir")
+    test_ds = load_dataset(cfg["dataset"], datadir, split="test")
+    logfolder = Path(cfg.get("basedir", "./log")) / _expname(cfg)
+    seed = int(cfg.get("seed", 20211200))
+    with eval_lib.apply_eval_tier(nmf, tier):
+        res = eval_lib.evaluate(nmf, test_ds,
+                                save_dir=str(logfolder / "imgs_render"),
+                                n_vis=_final_n_vis(cfg), seed=seed,
+                                gt_bg=_resolve_gt_bg(cfg, test_ds))
+        log(f"render_test: {res}")
+        if cfg.get("render_train", False):
+            train_ds = load_dataset(cfg["dataset"], datadir, split="train")
+            res_tr = eval_lib.evaluate(
+                nmf, train_ds, save_dir=str(logfolder / "imgs_train_all"),
+                n_vis=cfg.get("N_vis", -1), seed=seed)
+            log(f"train-split eval: {res_tr}")
+    return nmf, res
+
+
+def dispatch(cfg, log=print):
+    if cfg.get("render_only"):
+        return render_test(cfg, log=log)
+    if isinstance(cfg.get("dataset"), list):
+        raise NotImplementedError("dual-scene training is not ported yet")
+    return reconstruction(cfg, log=log)
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    cfg = config_lib.compose(argv)
-    if cfg.get("render_only"):
-        raise NotImplementedError(
-            "render_only needs checkpoints, which come with a later slice")
-    if isinstance(cfg.get("dataset"), list):
-        raise NotImplementedError("dual-scene training is not ported yet")
-    return reconstruction(cfg)
+    return dispatch(config_lib.compose(argv))
 
 
 if __name__ == "__main__":

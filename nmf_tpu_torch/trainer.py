@@ -136,6 +136,13 @@ class Optimizer:
         self.m = [torch.zeros_like(t) for t, _ in self.entries]
         self.v = [torch.zeros_like(t) for t, _ in self.entries]
 
+    def fast_forward(self, step: int):
+        """Set the step count, which drives both the lr schedule and Adam's
+        bias correction (nmf_tpu's ``fast_forward_opt_state``): a fresh
+        optimizer continues the global schedule from ``step`` instead of
+        restarting it."""
+        self.count = int(step)
+
     def zero_grad(self):
         for t, _ in self.entries:
             t.grad = None
@@ -192,10 +199,6 @@ def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
                  draws):
     """Photometric + regularizer loss. Returns (loss, metrics). The envmap
     cache is built once here for the whole step."""
-    for name in ("ortho_weight", "tv_weight_density", "tv_weight_app"):
-        if getattr(weights, name):
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP A.2)")
     bg_cache = nmf.bg_module.prepare() if nmf.bg_module is not None else None
     ims, stats = render(nmf, rays, is_train=True, bg_col=bg_col,
                         draws=draws,
@@ -208,8 +211,12 @@ def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
         w = getattr(weights, weight_name)
         if w:
             total = total + w * stats[stat]
-    if weights.l1_weight:
-        total = total + weights.l1_weight * nmf.rf.density_L1() * B
+    for w, reg in ((weights.l1_weight, nmf.rf.density_L1),
+                   (weights.ortho_weight, nmf.rf.vector_comp_diffs),
+                   (weights.tv_weight_density, nmf.rf.tv_loss_density),
+                   (weights.tv_weight_app, nmf.rf.tv_loss_app)):
+        if w:
+            total = total + w * reg() * B
     total = total / B
     metrics = {"loss": total.detach(), "photo_mse": sq.detach().mean(),
                "n_valid_samples": stats["n_valid_samples"]}

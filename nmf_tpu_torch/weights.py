@@ -1,4 +1,4 @@
-"""Carry nmf_tpu weights into the port.
+"""Carry weights between nmf_tpu and the port.
 
 ``from_jax_state_dict(nmf, sd)`` takes the flat ``{path: ndarray}`` of
 ``nmf_tpu.ckpt.state_dict`` (keys like ``.rf.density_rf.planes[0]``,
@@ -8,6 +8,9 @@ every entry into the port's module of the same path: an attribute per
 "b"}`` dicts in nmf_tpu and ``nn.Linear``s here: ``['w']`` is the
 transposed ``weight``, ``['b']`` the ``bias``. A key whose path the port
 lacks raises, and so does a port tensor that no key filled.
+
+``to_jax_state_dict(nmf)`` is the inverse: the same keys, shapes and
+dtypes as ``nmf_tpu.ckpt.state_dict`` of the same model, as numpy arrays.
 """
 import re
 
@@ -42,6 +45,35 @@ def port_tensor(nmf, key):
         raise KeyError(f"nmf_tpu state-dict key {key!r} has no counterpart "
                        "in nmf_tpu_torch")
     return obj, transpose
+
+
+def _jax_path(module_path, leaf, module):
+    """nmf_tpu's key of the port tensor ``leaf`` of ``module`` (found at
+    the dotted ``module_path``), and whether the port stores it
+    transposed."""
+    def path(tokens):
+        return "".join(f"[{t}]" if t.isdigit() else f".{t}"
+                       for t in tokens if t)
+
+    if isinstance(module, torch.nn.Linear):
+        return path(module_path.split(".")) + {
+            "weight": "['w']", "bias": "['b']"}[leaf], leaf == "weight"
+    return path([*module_path.split("."), leaf]), False
+
+
+@torch.no_grad()
+def to_jax_state_dict(nmf):
+    """Flat ``{nmf_tpu path: float32 ndarray}`` of every parameter and
+    buffer of ``nmf``, on the host."""
+    sd = {}
+    for mpath, module in nmf.named_modules():
+        tensors = list(module.named_parameters(recurse=False)) + list(
+            module.named_buffers(recurse=False))
+        for leaf, t in tensors:
+            key, transpose = _jax_path(mpath, leaf, module)
+            arr = t.detach().float().cpu().numpy()
+            sd[key] = (arr.T if transpose else arr).copy()
+    return sd
 
 
 def _port_tensors(nmf):

@@ -152,6 +152,21 @@ def test_tiny_flagship_step_on_card_matches_cpu(cuda):
     render and every gradient. The envmap's mip bias is 12, so every
     lookup box spans the map (small boxes carry the SAT's summation order,
     which differs between the card's cumsum and the CPU's)."""
+    _flagship_step_card_vs_cpu(cuda, [])
+
+
+@pytest.mark.cuda
+def test_tiny_fixed_shape_flagship_step_on_card_matches_cpu(cuda):
+    """The same with the fixed-shape field: 16^3 live inside planes padded
+    to 20^3, an all-occupied mask at 20^3 and the march step scaled to the
+    live cell; the padding's gradients on the card must be zero."""
+    grads = _flagship_step_card_vs_cpu(cuda, ["field.fixed_shape=true"])
+    assert len(grads) == 3
+    assert not any(g[:, 16:].any() or g[:, :, 16:].any() for g in grads)
+
+
+def _flagship_step_card_vs_cpu(cuda, extra):
+    """Runs the comparison; returns the card's density-plane gradients."""
     from nmf_tpu_torch import config, trainer
     from nmf_tpu_torch.builders import build_nmf
     from nmf_tpu_torch.data import load_dataset
@@ -159,7 +174,7 @@ def test_tiny_flagship_step_on_card_matches_cpu(cuda):
     from nmf_tpu_torch.render import render
 
     cfg = config.compose([*FLAGSHIP, "dataset.image_size=16",
-                          "dataset.n_views=4"])
+                          "dataset.n_views=4", *extra])
     ds = load_dataset(cfg["dataset"], None, "train")
     runs = []
     for dev in (cuda, torch.device("cpu")):
@@ -190,3 +205,7 @@ def test_tiny_flagship_step_on_card_matches_cpu(cuda):
     for a, b in zip(g0, g1):
         torch.testing.assert_close(a, b, rtol=1e-3,
                                    atol=1e-3 * float(b.abs().max()) + 1e-9)
+    return [g for g, (name, _, _) in zip(
+        g0, [e for e in trainer.differentiated_tensors(nmf)
+             if e[1].grad is not None])
+        if name.startswith("rf/density_rf/planes")]

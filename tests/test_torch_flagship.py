@@ -153,8 +153,9 @@ def test_reconstruction_on_cpu(tmp_path):
         f"basedir={tmp_path}", "expname=f", "progress_refresh_rate=4"]),
         log=lines.append)
     out = tmp_path / "synthetic_sphere_f" / "imgs_test_all"
+    # the test images and, as nmf_tpu writes it beside them, the envmap
     assert sorted(p.name for p in out.glob("*.png")) == [
-        "000.png", "001.png", "002.png"]
+        "000.png", "001.png", "002.png", "pano.png"]
     assert sum("schedule event" in ln for ln in lines) == 3
     # the adaptive batch moved off 64 at its 16th step
     assert any("batch=64" in ln for ln in lines)

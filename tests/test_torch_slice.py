@@ -157,6 +157,8 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'nmf_tpu')]\n"
         "assert not bad, bad\n"
+        "for m in ('ckpt', 'logging_utils', 'data.synthetic', 'train'):\n"
+        "    assert 'nmf_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('nmf_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -191,10 +193,60 @@ def test_unported_targets_raise():
 @pytest.mark.parametrize("override", [
     "model.arch.detach_inter=true",
     "model.arch.model.diffuse_mixing_mode=fresnel_ind",
-    "model.arch.model.diffuse_mixing_mode=lambda"])
+    "model.arch.model.diffuse_mixing_mode=lambda",
+    "model.arch.mlp_dtype=bf16",
+    "model.arch.sampler.superstep=2",
+    "model.arch.sampler.fine_alpha_test=false"])
 def test_unported_flagship_knobs_raise(override):
     # the flagship's shipped config sets none of these; they come with a
     # later slice
     cfg = ttrain.config_lib.compose([*FLAGSHIP, override])
     with pytest.raises(NotImplementedError):
         tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    "render_path=true", "fixed_bg=env.th", "gt_bg=/data/pano.exr",
+    "stream=true"])
+@pytest.mark.parametrize("render_only", [False, True])
+def test_unported_run_knobs_raise(tmp_path, override, render_only):
+    """The top-level knobs the port does not carry raise before any work,
+    in training and in render_only."""
+    cfg = ttrain.config_lib.compose([
+        "model=tensorf", "dataset=synthetic_sphere", "device=cpu",
+        f"basedir={tmp_path}", f"render_only={render_only}",
+        f"ckpt={tmp_path / 'none.th'}", override])
+    with pytest.raises(NotImplementedError):
+        ttrain.dispatch(cfg)
+
+
+def test_dataset_gt_bg_file_raises(tmp_path):
+    """A dataset whose gt_bg names an existing background image raises
+    (reading it needs the image loaders); a missing one falls back to the
+    scene's own panorama, as in nmf_tpu."""
+    cfg = ttrain.config_lib.compose([
+        "model=tensorf", "dataset=synthetic_sphere", f"datadir={tmp_path}",
+        "dataset.gt_bg=pano.exr"])
+    ds = {"gt_bg_im": np.zeros((2, 4, 3))}
+    assert ttrain._resolve_gt_bg(cfg, ds) is ds["gt_bg_im"]
+    (tmp_path / "backgrounds").mkdir()
+    (tmp_path / "backgrounds" / "pano.exr").write_bytes(b"")
+    with pytest.raises(NotImplementedError):
+        ttrain._resolve_gt_bg(cfg, ds)
+
+
+def test_eval_tier_scales_the_budgets_inside_its_block():
+    cfg = ttrain.config_lib.compose([*FLAGSHIP])
+    tn = tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+    m = tn.model
+    before = (m.test_rays_per_ray, m.brdf_ray_budget, m.max_retrace_rays)
+    with teval.apply_eval_tier(tn, "high"):
+        assert (m.test_rays_per_ray, m.brdf_ray_budget,
+                m.max_retrace_rays) == (256, (1024, 256), (64,))
+    assert (m.test_rays_per_ray, m.brdf_ray_budget,
+            m.max_retrace_rays) == before
+    assert [teval.validate_eval_tier(t) for t in ("train", "ultra", 3)] \
+        == [1, 4, 3]
+    for bad in ("hgih", 2.5, 0):
+        with pytest.raises(ValueError):
+            teval.validate_eval_tier(bad)
