@@ -52,6 +52,23 @@
    the checkpoint, which must reproduce the eval's PSNR within 0.1 dB.
    K3 is held and timed on the ids of two of its steps, as for the
    flagship.
+6. The Blender path: the studio scene (from the generator's memo) written
+   in nerf_synthetic layout where dataset=lego looks for it
+   (log/chip_smoke/data/nerf_synthetic/lego: RGBA, normal and tint PNGs,
+   transforms with camera_angle_x and the generator's camera-to-world
+   matrices) with its panorama as backgrounds/lego_bg.exr; host checks
+   (rays within 1e-5 of the generator's, RGBA within 1/255, the EXR bit-
+   equal to the panorama, the loader's seconds); then the trainer on
+   dataset=lego with only datadir, near_far and stack_norms overridden and
+   the studio knobs, 1000 iterations without a pause, the final eval's
+   envmap metrics against the EXR and pano.exr written. Its test PSNR must
+   clear 17 dB and land within 0.5 dB of the studio path's.
+7. The lego-size load: 100 train views of 800^2 RGBA (the sphere
+   generator's, alpha from its hit mask) and 4 test views written, loaded
+   by the trainer with dataset=lego's yaml and put on the card (64M rays,
+   2.56 GB); prints the load's seconds, traced host peak and the store's
+   bytes; 20 full-width flagship steps from that store, finite loss.
+   Every K1 / K2 / K3 launch of both new paths must be at a held size.
 
 Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
@@ -784,13 +801,14 @@ def counts_at_eval(train, kernels):
         train.eval_lib.evaluate = evaluate
 
 
-def drive_main_path(torch, kernels, label, card, n_iters, run):
+def drive_main_path(torch, kernels, label, card, n_iters, run,
+                    psnr_bar=PSNR_BAR):
     """Drive one path with every kernel count set to 0 first: ``run(log)``
     trains and evaluates, and returns (results, train seconds, a note for
     the summary line). Fails unless the loss is finite, every kernel
     launched, only at sizes that its check held, and the test PSNR clears
-    the bar. Returns (launches by kernel, launches by kernel and
-    sizes)."""
+    ``psnr_bar`` (None: a path without an eval). Returns (launches by
+    kernel, launches by kernel and sizes, results)."""
     from nmf_tpu_torch import train
 
     reset_counts(kernels)
@@ -808,18 +826,20 @@ def drive_main_path(torch, kernels, label, card, n_iters, run):
     if not math.isfinite(res.get("loss", float("nan"))):
         fail(f"{label}: training loss is not finite: {res.get('loss')}")
     check_launches(kernels, label, launches, by_size)
-    if not res.get("psnr", 0.0) > PSNR_BAR:
-        fail(f"{label}: test PSNR {res.get('psnr')} <= {PSNR_BAR} dB")
-    per_step = {k: round(v / n_iters, 2) for k, v in at_eval.items()}
+    if psnr_bar is not None and not res.get("psnr", 0.0) > psnr_bar:
+        fail(f"{label}: test PSNR {res.get('psnr')} <= {psnr_bar} dB")
+    per_step = {k: round(v / n_iters, 2)
+                for k, v in (at_eval or launches).items()}
     thin = "".join(f", {k} {res[k]:.3f}" for k in
                    ("thin_scale", "thin_scale_retrace") if k in res)
+    test = ("" if "psnr" not in res else
+            f", test PSNR {res['psnr']:.2f} dB, SSIM {res['ssim']:.4f}")
     print(f"{label} {n_iters} iters on {card}: train "
           f"{res['rays_per_sec']:.0f} rays/s, mean step "
           f"{1e3 * train_seconds / n_iters:.2f} ms (host clock, "
-          f"schedule events included), wall {wall:.1f} s, test PSNR "
-          f"{res['psnr']:.2f} dB, SSIM {res['ssim']:.4f}{thin}{note}, "
+          f"schedule events included), wall {wall:.1f} s{test}{thin}{note}, "
           f"launches per train step {per_step}")
-    return launches, by_size
+    return launches, by_size, res
 
 
 # The studio path: the flagship at full width on synthetic_studio under
@@ -840,9 +860,9 @@ STUDIO_UPSAMPLES, STUDIO_REBUILDS = (
     ",".join(str(i * STUDIO_ITERS // 8000) for i in iters)
     for iters in ((500, 1000, 2000, 3000, 4000, 5500, 7000),
                   (2000, 3000, 4000, 5500, 7000)))
-STUDIO = [
-    "model=microfacet_tensorf2", "dataset=synthetic_studio",
-    "dataset.hemisphere=true", "dataset.n_views=24", "dataset.image_size=128",
+# the studio knobs, apart from the scene
+STUDIO_KNOBS = [
+    "model=microfacet_tensorf2",
     "field.fixed_shape=true", "model.params.lr_upsample_reset=false",
     "model.params.distortion_lambda=1e-3", "model.params.max_batch_size=4096",
     f"model.params.n_iters={STUDIO_ITERS}",
@@ -850,6 +870,8 @@ STUDIO = [
     f"model.arch.sampler.update_list=[{STUDIO_REBUILDS}]",
     "final_N_vis=8", "vis_every=0",
     "device=cuda", f"basedir={LOG_DIR}", "progress_refresh_rate=100"]
+STUDIO = ["dataset=synthetic_studio", "dataset.hemisphere=true",
+          "dataset.n_views=24", "dataset.image_size=128", *STUDIO_KNOBS]
 # studio train steps whose K3 ids are recorded and replayed: one with the
 # live grid at 128^3 inside the padded planes, one after the last upsample
 STUDIO_REPLAY_STEPS = (STUDIO_ITERS // 32, 15 * STUDIO_ITERS // 16)
@@ -924,6 +946,210 @@ def studio_path(config):
     return run
 
 
+# The Blender path: the studio path's scene written in nerf_synthetic layout
+# under the folder dataset=lego names, trained through dataset=lego with
+# the studio knobs and no pause. Its only dataset overrides: datadir, the
+# studio cameras' near_far and the normal / tint maps. Only 8-bit
+# quantization separates its data from the studio path's, so its test PSNR
+# must land within BLENDER_DB of the studio path's.
+DATA_DIR = LOG_DIR / "data"
+BLENDER = ["dataset=lego", f"datadir={DATA_DIR}",
+           "dataset.near_far=[1.4,5.0]", "dataset.stack_norms=true",
+           *STUDIO_KNOBS, "expname=blender"]
+BLENDER_DB = 0.5
+# the lego-size load: nerf_synthetic's 100 train views of 800^2 (RGBA, the
+# sphere generator's, alpha from its hit mask) and a few test views,
+# loaded with dataset=lego's yaml, then full-width flagship steps from the
+# store on the card
+LEGO_VIEWS, LEGO_TEST_VIEWS, LEGO_SIZE, LEGO_STEPS = 100, 4, 800, 20
+LEGO_DIR = LOG_DIR / "lego_size"
+
+
+def max_abs(a, b):
+    import numpy as np
+
+    return float(np.max(np.abs(np.asarray(a, np.float64) - b)))
+
+
+def write_blender_scene(config):
+    """The studio scene (both splits, from the generator's memo) as a
+    nerf_synthetic folder: RGBA, normal and tint PNGs, transforms with
+    camera_angle_x = 55 degrees and the generator's camera-to-world
+    matrices, and its panorama as backgrounds/lego_bg.exr (FLOAT, ZIPS).
+    Then the host checks: the loaded rays within 1e-5 of the generator's,
+    RGBA within 1/255, the EXR read back bit-equal to the panorama. Prints
+    the loader's seconds."""
+    import numpy as np
+
+    from nmf_tpu_torch.data import load_dataset
+    from nmf_tpu_torch.data.blender import save_blender_split
+    from nmf_tpu_torch.data.exr import read_exr, write_exr
+
+    studio = config.compose([*STUDIO, "expname=studio"])["dataset"]
+    lego = config.compose(BLENDER)
+    scenedir = DATA_DIR / lego["dataset"]["scenedir"]
+    t0 = time.time()
+    gens = {split: load_dataset(studio, None, split)
+            for split in ("train", "test")}
+    for split, gen in gens.items():
+        W, H = gen["img_wh"]
+        shape = (gen["poses"].shape[0], H, W, -1)
+        save_blender_split(scenedir, split, gen["poses"],
+                           gen["all_rgbs"].reshape(shape), np.deg2rad(55.0),
+                           gen["all_norms"].reshape(shape),
+                           gen["all_tints"].reshape(shape))
+    bg = DATA_DIR / "backgrounds" / lego["dataset"]["gt_bg"]
+    bg.parent.mkdir(parents=True, exist_ok=True)
+    write_exr(bg, gen["gt_bg_im"])
+    print(f"blender scene: {scenedir} and {bg} written in "
+          f"{time.time() - t0:.1f} s")
+    for split, gen in gens.items():
+        t0 = time.time()
+        ds = load_dataset(lego["dataset"], lego["datadir"], split)
+        seconds = time.time() - t0
+        ray_err = max_abs(ds["all_rays"], gen["all_rays"])
+        rgba_err = max_abs(ds["all_rgbs"], gen["all_rgbs"])
+        print(f"blender scene {split}: loaded {ds['all_rays'].shape[0]} rays "
+              f"in {seconds:.3f} s; rays vs the generator's max_abs_err "
+              f"{ray_err:.3e}, RGBA {rgba_err:.3e} (1/255 = {1 / 255:.3e})")
+        if not ray_err <= 1e-5:
+            fail(f"blender scene {split}: rays off by {ray_err} (> 1e-5)")
+        if not rgba_err <= 1 / 255:
+            fail(f"blender scene {split}: RGBA off by {rgba_err} (> 1/255)")
+    pano = read_exr(bg)
+    if not (pano.shape == gen["gt_bg_im"].shape
+            and np.array_equal(pano, gen["gt_bg_im"])):
+        fail(f"blender scene: {bg} does not read back as the panorama")
+    print(f"blender scene: {bg.name} {pano.shape} read back equal to the "
+          f"panorama (max {pano.max():.2f})")
+
+
+def blender_path(config):
+    """The Blender path's run for ``drive_main_path``: the trainer on
+    dataset=lego, its final eval against the panorama read from the EXR.
+    Fails unless it wrote pano.exr."""
+    from nmf_tpu_torch import train
+
+    def run(log):
+        _, res = train.reconstruction(config.compose(BLENDER), log=log)
+        pano = LOG_DIR / "lego_blender" / "imgs_test_all" / "pano.exr"
+        if not pano.exists():
+            fail(f"blender: the final eval wrote no {pano}")
+        note = (f", norm_err {res['norm_err']:.2f} deg, tint_psnr "
+                f"{res['tint_psnr']:.2f} dB, envmap_psnr "
+                f"{res['envmap_psnr']:.2f} dB against {BLENDER[0]}'s "
+                f"gt_bg EXR")
+        return res, res["train_seconds"], note
+
+    return run
+
+
+def sphere_poses(n_views, phi_deg):
+    """The sphere generator's cameras: an orbit of radius 4 at ``phi_deg``
+    (Blender-convention camera-to-world matrices)."""
+    from nmf_tpu_torch.data.ray_utils import pose_spherical
+
+    return [pose_spherical(360.0 * i / n_views, phi_deg, 4.0)
+            for i in range(n_views)]
+
+
+def sphere_views(poses, size):
+    """The sphere generator's RGBA views (60 degrees wide; alpha from its
+    hit mask), made one at a time as they are consumed."""
+    import numpy as np
+
+    from nmf_tpu_torch.data.ray_utils import (get_ray_directions_blender,
+                                              get_rays)
+    from nmf_tpu_torch.data.synthetic import render_sphere_scene
+
+    focal = 0.5 * size / np.tan(0.5 * np.deg2rad(60.0))
+    dirs = get_ray_directions_blender(size, size, [focal, focal])
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    for c2w in poses:
+        rgb, alpha, _ = render_sphere_scene(*get_rays(dirs, c2w))
+        yield np.concatenate([rgb, alpha[:, None]], -1).reshape(
+            size, size, 4)
+
+
+@contextlib.contextmanager
+def measured_loads(train, record):
+    """Within the block, each of the trainer's dataset loads is timed and
+    its host allocations traced (numpy's buffers included): appends
+    (split, seconds, traced peak bytes, rays, store bytes) to ``record``."""
+    import tracemalloc
+
+    load = train.load_dataset
+
+    def measured(cfg, datadir, split="train", **kw):
+        tracemalloc.start()
+        t0 = time.time()
+        try:
+            ds = load(cfg, datadir, split, **kw)
+        finally:
+            peak = tracemalloc.get_traced_memory()[1]
+            tracemalloc.stop()
+        record.append((split, time.time() - t0, peak,
+                       ds["all_rays"].shape[0],
+                       ds["all_rays"].nbytes + ds["all_rgbs"].nbytes))
+        return ds
+
+    train.load_dataset = measured
+    try:
+        yield record
+    finally:
+        train.load_dataset = load
+
+
+def lego_load_path(torch, config):
+    """Write the lego-size scene (timed), then return the run for
+    ``drive_main_path``: the trainer on dataset=lego's yaml (near_far set
+    to the sphere's cameras), the flagship at full width, batch pinned at
+    4096, LEGO_STEPS steps from the store on the card and no eval. The run
+    prints each load's seconds and traced host peak, the process's peak
+    RSS, the store's bytes and the card's peak allocation."""
+    import resource
+
+    import numpy as np
+
+    from nmf_tpu_torch import train
+    from nmf_tpu_torch.data.blender import save_blender_split
+
+    t0 = time.time()
+    for split, n, phi in (("train", LEGO_VIEWS, -30.0),
+                          ("test", LEGO_TEST_VIEWS, -25.0)):
+        poses = sphere_poses(n, phi)
+        save_blender_split(LEGO_DIR / "nerf_synthetic" / "lego", split,
+                           poses, sphere_views(poses, LEGO_SIZE),
+                           np.deg2rad(60.0))
+    print(f"lego-size scene: {LEGO_VIEWS} + {LEGO_TEST_VIEWS} views of "
+          f"{LEGO_SIZE}^2 RGBA generated and written in "
+          f"{time.time() - t0:.1f} s (one core)")
+    cfg = config.compose([
+        "model=microfacet_tensorf2", "dataset=lego", f"datadir={LEGO_DIR}",
+        "dataset.near_far=[2.5,5.5]", f"model.params.n_iters={LEGO_STEPS}",
+        "model.params.max_batch_size=4096", "render_test=false",
+        "device=cuda", f"basedir={LOG_DIR}", "expname=lego_size",
+        "progress_refresh_rate=5"])
+
+    def run(log):
+        torch.cuda.reset_peak_memory_stats()
+        with measured_loads(train, []) as loads:
+            _, res = train.reconstruction(cfg, log=log)
+        for split, seconds, peak, rays, store in loads:
+            print(f"lego-size load ({split}): {rays} rays in {seconds:.2f} "
+                  f"s, traced host peak {peak} B ({peak / 2**30:.2f} GiB), "
+                  f"rays + RGBA {store} B ({store / 2**30:.2f} GiB)")
+        train_store = next(ld[4] for ld in loads if ld[0] == "train")
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        note = (f"; device store {train_store} B "
+                f"({train_store / 2**30:.2f} GiB), card peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                f"process peak RSS so far {rss / 2**30:.2f} GiB")
+        return res, res["train_seconds"], note
+
+    return run
+
+
 def main():
     import torch
 
@@ -992,7 +1218,7 @@ def main():
             return res, res["train_seconds"], ""
 
         with recorder:
-            launches[label], by_size[label] = drive_main_path(
+            launches[label], by_size[label], _ = drive_main_path(
                 torch, kernels, label, card,
                 int(cfg["model"]["params"]["n_iters"]), run)
         recorded += recorder.entries
@@ -1000,11 +1226,27 @@ def main():
         fail(f"no K3 launch was recorded at flagship steps {REPLAY_STEPS}")
     # ---- the studio path: pause, resume, final checkpoint, render_only ----
     with BinsumRecorder(STUDIO_REPLAY_STEPS) as recorder:
-        launches["studio"], by_size["studio"] = drive_main_path(
+        launches["studio"], by_size["studio"], studio = drive_main_path(
             torch, kernels, "studio", card, STUDIO_ITERS, studio_path(config))
     if not recorder.entries:
         fail(f"no K3 launch was recorded at studio steps "
              f"{STUDIO_REPLAY_STEPS}")
+    # ---- the Blender path: the studio scene as a nerf_synthetic folder
+    # through dataset=lego, the gt_bg panorama read from its EXR ----
+    write_blender_scene(config)
+    launches["blender"], by_size["blender"], blender = drive_main_path(
+        torch, kernels, "blender", card, STUDIO_ITERS, blender_path(config))
+    gap = blender["psnr"] - studio["psnr"]
+    print(f"blender vs studio test PSNR: {blender['psnr']:.2f} - "
+          f"{studio['psnr']:.2f} = {gap:+.2f} dB (bar {BLENDER_DB} dB)")
+    if not abs(gap) <= BLENDER_DB:
+        fail(f"blender: test PSNR {blender['psnr']} is not within "
+             f"{BLENDER_DB} dB of the studio path's {studio['psnr']}")
+    # ---- the lego-size load: 100 views of 800^2 into the store on the
+    # card, then full-width flagship steps from it ----
+    launches["lego_size"], by_size["lego_size"], _ = drive_main_path(
+        torch, kernels, "lego_size", card, LEGO_STEPS,
+        lego_load_path(torch, config), psnr_bar=None)
 
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"

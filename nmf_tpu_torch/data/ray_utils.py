@@ -1,7 +1,22 @@
 """Camera ray generation (host-side numpy; the port's own copy of
-``nmf_tpu/data/ray_utils.py``: get_ray_directions_blender, get_rays,
-pose_spherical)."""
+``nmf_tpu/data/ray_utils.py``: get_ray_directions,
+get_ray_directions_blender, get_rays, pose_spherical)."""
 import numpy as np
+
+
+def get_ray_directions(H, W, focal, center=None):
+    """OpenCV-convention camera ray directions, normalized later by caller.
+
+    focal: (fx, fy). Returns (H, W, 3) with +z forward.
+    """
+    j, i = np.mgrid[0:H, 0:W].astype(np.float32)
+    i = i + 0.5
+    j = j + 0.5
+    cent = center if center is not None else [W / 2, H / 2]
+    directions = np.stack(
+        [(i - cent[0]) / focal[0], (j - cent[1]) / focal[1], np.ones_like(i)],
+        axis=-1)
+    return directions
 
 
 def get_ray_directions_blender(H, W, focal, center=None):

@@ -5,17 +5,15 @@ them, the masked angular error of the normals against ``all_norms``
 ``all_tints``; the envmap's regression-aligned metrics against a
 ground-truth panorama; the eval budget tiers; PNG artifacts (the test
 image, its squared error, rgb|depth and one folder per map), ``mean.txt``,
-the per-image ``stats.yaml`` and the envmap as ``pano.png``. PNGs are
-written with zlib alone.
+the per-image ``stats.yaml`` and the envmap as ``pano.png`` and
+``pano.exr``. PNGs are written with zlib alone, EXRs by ``data/exr.py``.
 
 Not in this slice: LPIPS (its weights cannot be fetched here), videos, the
-``.exr`` dumps (they wait for the EXR writer, ROADMAP A.2) and
+HDR renders' ``.exr`` dumps (they come with ``hdr``, ROADMAP A.1) and
 render_path.
 """
 import contextlib
 import os
-import struct
-import zlib
 from pathlib import Path
 from typing import Optional
 
@@ -23,6 +21,8 @@ import numpy as np
 import torch
 
 from . import utils
+from .data.exr import write_exr, write_png
+from .data.resize import resize_linear
 from .ops.draws import Draws
 from .render import NMF, render
 
@@ -127,27 +127,6 @@ def visualize_depth(depth, near_far=None):
     return np.stack([x, x, x], axis=-1)
 
 
-def write_png(path, img):
-    """Write an (H, W) or (H, W, 3) image in [0, 1] as an 8-bit RGB PNG."""
-    arr = np.asarray(img)
-    if arr.ndim == 2:
-        arr = np.stack([arr] * 3, -1)
-    u8 = (np.clip(arr[..., :3], 0, 1) * 255).astype(np.uint8)
-    H, W = u8.shape[:2]
-    raw = b"".join(b"\x00" + u8[y].tobytes() for y in range(H))
-
-    def chunk(tag, data):
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_bytes(png)
-
-
 def regression_aligned_psnr(pred, gt):
     """PSNR after a per-channel linear fit of pred to gt."""
     X = np.asarray(pred).reshape(-1, 3)
@@ -156,20 +135,6 @@ def regression_aligned_psnr(pred, gt):
     coef, *_ = np.linalg.lstsq(A, Y, rcond=None)
     err = np.clip(A @ coef - Y, -1, 1)
     return float(-10 * np.log10(np.mean(err ** 2) + 1e-12))
-
-
-def _resize(im, hw):
-    """Resize an (H, W, 3) image as nmf_tpu does: cv2's bilinear resize
-    where cv2 is installed, else PIL's on the image quantized to 8 bits."""
-    try:
-        import cv2
-
-        return cv2.resize(im, (hw[1], hw[0]))
-    except ImportError:
-        from PIL import Image
-
-        sc = (np.clip(im, 0, 1) * 255).astype(np.uint8)
-        return np.asarray(Image.fromarray(sc).resize((hw[1], hw[0]))) / 255.0
 
 
 def envmap_image(bg_module):
@@ -189,8 +154,8 @@ def calc_envmap_metrics(bg_module, gt_im, fH=500):
     gW = gt.shape[1]
     gt = gt[:, ::-1]
     gt = np.concatenate([gt[:, gW // 2:], gt[:, :gW // 2]], axis=1)
-    pred = _resize(pred, (fH, 2 * fH))
-    gt = _resize(gt[..., :3], (fH, 2 * fH))
+    pred = resize_linear(pred, (2 * fH, fH))
+    gt = resize_linear(gt[..., :3], (2 * fH, fH))
     X = pred.reshape(-1, 3)
     Y = gt.reshape(-1, 3)
     A = np.concatenate([X, np.ones((X.shape[0], 1))], axis=1)
@@ -255,7 +220,8 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
     and, where the dataset has them, norm_err and tint_psnr, plus the
     envmap metrics against ``gt_bg``. With ``save_dir``: the images as
     {prefix}{i:03d}.png, one folder of PNGs per map,
-    stats{prefix}.yaml, mean.txt and the envmap as {prefix}pano.png.
+    stats{prefix}.yaml, mean.txt and the envmap as {prefix}pano.png and
+    {prefix}pano.exr (FLOAT, ZIPS).
     Random draws come from a generator seeded with ``seed``."""
     chunk = nmf.eval_batch_size
     draws = Draws(torch.Generator(device=_device(nmf)).manual_seed(seed))
@@ -304,6 +270,7 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
         with open(Path(save_dir) / "mean.txt", "w") as f:
             f.write(str(summary))
         if nmf.bg_module is not None:
-            write_png(Path(save_dir) / f"{prefix}pano.png",
-                      envmap_image(nmf.bg_module))
+            envmap = envmap_image(nmf.bg_module)
+            write_png(Path(save_dir) / f"{prefix}pano.png", envmap)
+            write_exr(Path(save_dir) / f"{prefix}pano.exr", envmap)
     return summary

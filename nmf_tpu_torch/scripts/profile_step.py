@@ -118,7 +118,7 @@ def main(argv=None):
     cfg = config.compose([f"model={model}", "dataset=synthetic_sphere",
                           "device=cuda", *schedule, *overrides])
     params = cfg["model"]["params"]
-    ds = load_dataset(cfg["dataset"], None, "train")
+    ds = load_dataset(cfg["dataset"], cfg.get("datadir"), "train")
     nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
                     tuple(cfg["dataset"]["near_far"]), device=dev)
     draws = Draws(torch.Generator(device=dev).manual_seed(0))

@@ -27,9 +27,14 @@ start_iter)``, so two resumes from one checkpoint train identically (the
 streams are not those of an unpaused run: nmf_tpu folds its key with the
 iteration instead).
 
+The envmap metrics compare against the ``gt_bg`` panorama: a top-level
+``gt_bg=`` path, or the dataset yaml's ``gt_bg`` file where it exists under
+``<datadir>/backgrounds/``, read with ``data.exr.imread_any``; else the
+procedural scene's own.
+
 Not ported yet: ``render_path``, ``fixed_bg`` relighting (it reads a
-pickled flax pytree), a ``gt_bg`` read from an image file and streaming
-render raise ``NotImplementedError``, and so do the parameters of the
+pickled flax pytree) and streaming render raise ``NotImplementedError``,
+and so do the parameters of the
 bounce-budget controller (``adapt_brdf_budget``) and of the ori/pred
 decays; the port runs on one card (no device mesh) and has no multirun.
 """
@@ -48,6 +53,7 @@ from . import eval as eval_lib
 from . import trainer
 from .builders import build_nmf
 from .data import load_dataset
+from .data.exr import imread_any
 from .logging_utils import RunLogger
 from .ops.draws import Draws
 
@@ -159,25 +165,25 @@ def check_unported(cfg):
             ("fixed_bg", "fixed_bg relighting reads a format-1 checkpoint "
                          "(a pickled flax pytree that needs JAX); it comes "
                          "with scripts/pano2env.py (ROADMAP A.4)"),
-            ("gt_bg", "a gt_bg read from an image file needs the EXR/PNG "
-                      "loaders (ROADMAP A.2)"),
             ("stream", "streaming render (render_streaming.py) comes with "
                        "a later slice (ROADMAP A.2)")):
         if cfg.get(key):
             raise NotImplementedError(f"{key}={cfg[key]!r}: {why}")
 
 
-def _resolve_gt_bg(cfg, test_ds):
-    """The ground-truth panorama of the envmap metrics: the procedural
-    scene's own ``gt_bg_im``. A dataset whose yaml names a background file
-    that exists under ``datadir/backgrounds`` raises: reading it needs the
-    image loaders (ROADMAP A.2)."""
-    name = cfg["dataset"].get("gt_bg")
-    if name and (Path(cfg.get("datadir", "/data")) / "backgrounds"
-                 / name).exists():
-        raise NotImplementedError(
-            f"dataset.gt_bg={name!r}: reading a background image needs the "
-            "EXR/PNG loaders (ROADMAP A.2)")
+def _resolve_gt_bg(cfg, datadir, test_ds):
+    """The ground-truth panorama of the envmap metrics, as nmf_tpu resolves
+    it for the final eval and render_only alike: the top-level ``gt_bg``
+    path, replaced by the dataset yaml's ``gt_bg`` where that file exists
+    under ``<datadir>/backgrounds``, read with ``imread_any``; without
+    either, the procedural scene's own ``gt_bg_im`` (or None)."""
+    gt_bg_path = cfg.get("gt_bg")
+    if cfg["dataset"].get("gt_bg"):
+        ds_bg = Path(datadir) / "backgrounds" / cfg["dataset"]["gt_bg"]
+        if ds_bg.exists():
+            gt_bg_path = str(ds_bg)
+    if gt_bg_path:
+        return imread_any(gt_bg_path)
     return test_ds.get("gt_bg_im")
 
 
@@ -205,7 +211,7 @@ def reconstruction(cfg, log=print):
     run_log = RunLogger(logfolder, echo=log)
     log = run_log.info
 
-    datadir = cfg.get("datadir")
+    datadir = cfg.get("datadir", "/data")
     train_ds = load_dataset(cfg["dataset"], datadir, split="train")
     test_ds = load_dataset(cfg["dataset"], datadir, split="test")
     seed = int(cfg.get("seed", 20211200))
@@ -333,7 +339,7 @@ def reconstruction(cfg, log=print):
             res = eval_lib.evaluate(
                 nmf, test_ds, save_dir=str(logfolder / "imgs_test_all"),
                 n_vis=_final_n_vis(cfg), seed=seed,
-                gt_bg=_resolve_gt_bg(cfg, test_ds))
+                gt_bg=_resolve_gt_bg(cfg, datadir, test_ds))
         log(f"final test: {res}")
         results.update(res)
     if cfg.get("render_train", False):
@@ -358,7 +364,7 @@ def render_test(cfg, log=print):
     check_unported(cfg)
     device = torch.device(cfg.get("device", "cuda"))
     nmf, _, _ = ckpt_lib.load(cfg["ckpt"], device)
-    datadir = cfg.get("datadir")
+    datadir = cfg.get("datadir", "/data")
     test_ds = load_dataset(cfg["dataset"], datadir, split="test")
     logfolder = Path(cfg.get("basedir", "./log")) / _expname(cfg)
     seed = int(cfg.get("seed", 20211200))
@@ -366,7 +372,7 @@ def render_test(cfg, log=print):
         res = eval_lib.evaluate(nmf, test_ds,
                                 save_dir=str(logfolder / "imgs_render"),
                                 n_vis=_final_n_vis(cfg), seed=seed,
-                                gt_bg=_resolve_gt_bg(cfg, test_ds))
+                                gt_bg=_resolve_gt_bg(cfg, datadir, test_ds))
         log(f"render_test: {res}")
         if cfg.get("render_train", False):
             train_ds = load_dataset(cfg["dataset"], datadir, split="train")

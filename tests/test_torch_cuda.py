@@ -209,3 +209,28 @@ def _flagship_step_card_vs_cpu(cuda, extra):
         g0, [e for e in trainer.differentiated_tensors(nmf)
              if e[1].grad is not None])
         if name.startswith("rf/density_rf/planes")]
+
+
+@pytest.mark.cuda
+def test_tiny_blender_scene_flagship_steps_on_card(cuda, tmp_path):
+    """The default run's dataset on the card: a tiny nerf_synthetic folder
+    (the sphere generator's views) loaded with dataset=lego, three steps
+    of the tiny flagship from the device store, then the eval: the loss is
+    finite and pano.exr is written."""
+    from nmf_tpu_torch import config, train
+    from nmf_tpu_torch.data.blender import save_blender_split
+    from nmf_tpu_torch.data.synthetic import make_sphere_dataset
+
+    for split, seed in (("train", 0), ("test", 1)):
+        ds = make_sphere_dataset(n_views=3, H=16, W=16, seed=seed)
+        save_blender_split(tmp_path / "nerf_synthetic" / "lego", split,
+                           ds["poses"], ds["all_rgbs"].reshape(3, 16, 16, 3),
+                           2 * np.arctan(8 / ds["focal"]))
+    _, res = train.reconstruction(config.compose([
+        *(o for o in FLAGSHIP if not o.startswith("dataset=")),
+        "dataset=lego", f"datadir={tmp_path}", "dataset.near_far=[2.5,5.5]",
+        "model.params.n_iters=3", "model.params.batch_size=64",
+        "device=cuda", f"basedir={tmp_path}", "expname=c", "N_vis=1"]),
+        log=lambda s: None)
+    assert np.isfinite(res["loss"])
+    assert (tmp_path / "lego_c" / "imgs_test_all" / "pano.exr").exists()

@@ -255,5 +255,7 @@ def test_load_dataset_matches():
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+    # blender loads since the data slice (tests/test_torch_data.py); llff
+    # waits for NDC sampling
     with pytest.raises(NotImplementedError):
-        tload({"dataset_name": "blender", "scenedir": "lego"}, None)
+        tload({"dataset_name": "llff", "scenedir": "fern"}, None)

@@ -1,8 +1,10 @@
 """The tensorf slice of nmf_tpu_torch as a whole, against nmf_tpu: three
 train steps (loss, every gradient, every updated tensor), an eval render,
-a CPU reconstruction run, the import boundary and chip_smoke.py's refusal
-to run without a card."""
+a CPU reconstruction run, the default run's dataset (``dataset=lego`` on a
+nerf_synthetic folder with its ``gt_bg`` EXR), the import boundary and
+chip_smoke.py's refusal to run without a card."""
 import os
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -16,16 +18,25 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from nmf_tpu import ckpt as jckpt  # noqa: E402
+from nmf_tpu import config as jconfig  # noqa: E402
 from nmf_tpu import eval as jeval  # noqa: E402
+from nmf_tpu import train as jtrain  # noqa: E402
 from nmf_tpu import trainer as jtrainer  # noqa: E402
 from nmf_tpu import utils as jutils  # noqa: E402
+from nmf_tpu.builders import build_nmf as jbuild  # noqa: E402
+from nmf_tpu.data import exr as jexr  # noqa: E402
 from nmf_tpu.data.blender import load_dataset as jload  # noqa: E402
 from nmf_tpu.render import render as jrender  # noqa: E402
+from nmf_tpu_torch import ckpt as tckpt  # noqa: E402
 from nmf_tpu_torch import eval as teval  # noqa: E402
 from nmf_tpu_torch import train as ttrain  # noqa: E402
 from nmf_tpu_torch import trainer as ttrainer  # noqa: E402
 from nmf_tpu_torch import weights  # noqa: E402
 from nmf_tpu_torch.builders import build_nmf as tbuild  # noqa: E402
+from nmf_tpu_torch.data import exr as texr  # noqa: E402
+from nmf_tpu_torch.data import load_dataset as tload  # noqa: E402
+from nmf_tpu_torch.data.blender import save_blender_split  # noqa: E402
+from nmf_tpu_torch.data.synthetic import make_shiny_dataset  # noqa: E402
 from nmf_tpu_torch.ops.draws import Draws  # noqa: E402
 from torch_parity import AABB, NEAR_FAR, build_pair  # noqa: E402
 from torch_inputs import FLAGSHIP  # noqa: E402
@@ -157,8 +168,12 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'nmf_tpu')]\n"
         "assert not bad, bad\n"
-        "for m in ('ckpt', 'logging_utils', 'data.synthetic', 'train'):\n"
+        "for m in ('ckpt', 'logging_utils', 'data.synthetic', 'train',\n"
+        "          'data.blender', 'data.exr'):\n"
         "    assert 'nmf_tpu_torch.' + m in sys.modules, m\n"
+        "other = [k for k in sys.modules if k.split('.')[0] in "
+        "('cv2', 'imageio')]\n"
+        "assert not other, other\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('nmf_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -206,8 +221,7 @@ def test_unported_flagship_knobs_raise(override):
 
 
 @pytest.mark.parametrize("override", [
-    "render_path=true", "fixed_bg=env.th", "gt_bg=/data/pano.exr",
-    "stream=true"])
+    "render_path=true", "fixed_bg=env.th", "stream=true"])
 @pytest.mark.parametrize("render_only", [False, True])
 def test_unported_run_knobs_raise(tmp_path, override, render_only):
     """The top-level knobs the port does not carry raise before any work,
@@ -220,19 +234,175 @@ def test_unported_run_knobs_raise(tmp_path, override, render_only):
         ttrain.dispatch(cfg)
 
 
+# the tiny tensorf of test_reconstruction_on_cpu_writes_eval_images, one
+# step, an eval of one view
+TINY_TENSORF = [
+    "model=tensorf", "dataset=synthetic_sphere", "device=cpu",
+    "model.params.n_iters=1", "model.params.batch_size=64",
+    "field.N_voxel_init=4096", "field.N_voxel_final=8000",
+    "field.upsamp_list=[]", "model.arch.sampler.update_list=[]",
+    "model.arch.max_samples_per_ray=32",
+    "model.arch.model.diffuse_module.featureC=16",
+    "dataset.image_size=8", "dataset.n_views=2", "N_vis=1"]
+
+
+def _pano(tmp_path, name, seed):
+    """An HDR panorama written as a FLOAT / ZIPS EXR; returns the array."""
+    pano = np.random.default_rng(seed).gamma(0.6, 2.0, (8, 16, 3)).astype(
+        np.float32)
+    texr.write_exr(tmp_path / name, pano)
+    return pano
+
+
+@pytest.mark.parametrize("render_only", [False, True])
+def test_gt_bg_file_is_read(tmp_path, monkeypatch, render_only):
+    """A run with a top-level gt_bg=<exr>, in training and in render_only,
+    hands the file's panorama to its final eval."""
+    pano = _pano(tmp_path, "pano.exr", 0)
+    seen = []
+    monkeypatch.setattr(ttrain.eval_lib, "evaluate",
+                        lambda *a, **k: seen.append(k.get("gt_bg")) or {})
+    overrides = [*TINY_TENSORF, f"basedir={tmp_path}",
+                 f"gt_bg={tmp_path / 'pano.exr'}"]
+    if render_only:
+        cfg = ttrain.config_lib.compose(overrides)
+        nmf = tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+        tckpt.save(tmp_path / "m.th", nmf, cfg)
+        overrides += ["render_only=True", f"ckpt={tmp_path / 'm.th'}"]
+    ttrain.dispatch(ttrain.config_lib.compose(overrides), log=lambda s: None)
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0], pano)
+
+
+@pytest.mark.parametrize("case", ["top-level path", "dataset file present",
+                                  "dataset file absent"])
+def test_resolve_gt_bg_matches(tmp_path, case):
+    """The panorama of the envmap metrics: a top-level gt_bg path; the
+    dataset yaml's gt_bg file under <datadir>/backgrounds, which replaces
+    it where the file exists; else the scene's own panorama. Both packages
+    pick the same one."""
+    top = _pano(tmp_path, "top.exr", 1)
+    (tmp_path / "backgrounds").mkdir()
+    ds_bg = _pano(tmp_path / "backgrounds", "bg.exr", 2)
+    overrides = ["dataset=synthetic_sphere", f"datadir={tmp_path}"]
+    if case != "dataset file absent":
+        overrides.append(f"gt_bg={tmp_path / 'top.exr'}")
+    if case != "top-level path":
+        overrides.append("dataset.gt_bg="
+                         + ("bg.exr" if case == "dataset file present"
+                            else "missing.exr"))
+    ds = {"gt_bg_im": np.zeros((2, 4, 3), np.float32)}
+    cfg = ttrain.config_lib.compose(overrides)
+    ours = ttrain._resolve_gt_bg(cfg, str(tmp_path), ds)
+    theirs = jtrain._resolve_gt_bg(cfg, str(tmp_path), ds)
+    want = {"top-level path": top, "dataset file present": ds_bg,
+            "dataset file absent": ds["gt_bg_im"]}[case]
+    np.testing.assert_array_equal(ours, want)
+    np.testing.assert_array_equal(theirs, want)
+
+
 def test_dataset_gt_bg_file_raises(tmp_path):
-    """A dataset whose gt_bg names an existing background image raises
-    (reading it needs the image loaders); a missing one falls back to the
-    scene's own panorama, as in nmf_tpu."""
+    """A dataset gt_bg file that exists but cannot be read (PIZ compressed)
+    raises: no fallback to the scene's own panorama hides it."""
     cfg = ttrain.config_lib.compose([
         "model=tensorf", "dataset=synthetic_sphere", f"datadir={tmp_path}",
         "dataset.gt_bg=pano.exr"])
     ds = {"gt_bg_im": np.zeros((2, 4, 3))}
-    assert ttrain._resolve_gt_bg(cfg, ds) is ds["gt_bg_im"]
+    assert ttrain._resolve_gt_bg(cfg, str(tmp_path), ds) is ds["gt_bg_im"]
     (tmp_path / "backgrounds").mkdir()
-    (tmp_path / "backgrounds" / "pano.exr").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        ttrain._resolve_gt_bg(cfg, ds)
+    path = tmp_path / "backgrounds" / "pano.exr"
+    texr.write_exr(path, np.ones((4, 8, 3)))
+    raw = path.read_bytes()
+    key = b"compression\0compression\0" + struct.pack("<i", 1)
+    path.write_bytes(raw.replace(key + bytes([2]), key + bytes([4])))
+    with pytest.raises(ValueError, match="PIZ"):
+        ttrain._resolve_gt_bg(cfg, str(tmp_path), ds)
+
+
+def _nerf_synthetic(root, n_views=3, size=16):
+    """The studio scene in nerf_synthetic layout at the paths dataset=lego
+    names: <root>/nerf_synthetic/lego (RGBA, normals, tints) and
+    <root>/backgrounds/lego_bg.exr (its HDR panorama). Returns the
+    panorama."""
+    for split in ("train", "test"):
+        ds = make_shiny_dataset(n_views=n_views, H=size, W=size,
+                                n_gi_samples=2, scene="studio",
+                                hemisphere=True, split=split)
+
+        def views(key, c):
+            return ds[key].reshape(n_views, size, size, c)
+
+        save_blender_split(root / "nerf_synthetic" / "lego", split,
+                           ds["poses"], views("all_rgbs", 4),
+                           np.deg2rad(55.0), views("all_norms", 3),
+                           views("all_tints", 3))
+    (root / "backgrounds").mkdir()
+    texr.write_exr(root / "backgrounds" / "lego_bg.exr", ds["gt_bg_im"])
+    return ds["gt_bg_im"]
+
+
+# the verify skill's tiny CPU flagship on dataset=lego, 10 iterations
+BLENDER_FLAGSHIP = [
+    "model=microfacet_tensorf2", "dataset=lego", "device=cpu",
+    "model.params.n_iters=10", "field.N_voxel_init=4096",
+    "field.N_voxel_final=8000", "field.upsamp_list=[]",
+    "model.arch.max_samples_per_ray=16",
+    "model.arch.recur_samples_per_ray=8",
+    "model.arch.proposal_samples_per_ray=8",
+    "model.arch.model.brdf_ray_budget=[512,128]",
+    "model.arch.model.max_retrace_rays=[32]",
+    "model.arch.bg_module.bg_resolution=32", "model.params.batch_size=64",
+    "dataset.near_far=[1.4,5.0]", "dataset.stack_norms=true"]
+
+
+def test_blender_flagship_run_on_cpu(tmp_path):
+    """The default run's dataset on the CPU: the tiny flagship trains on
+    the nerf_synthetic folder, writes pano.exr (the envmap, read back
+    exactly), and its envmap metrics against the HDR gt_bg equal nmf_tpu's
+    calc_envmap_metrics on the same envmap carried across and the same
+    file."""
+    pano = _nerf_synthetic(tmp_path / "data")
+    tn, res = ttrain.reconstruction(ttrain.config_lib.compose([
+        *BLENDER_FLAGSHIP, f"datadir={tmp_path / 'data'}",
+        f"basedir={tmp_path}", "expname=b"]), log=lambda s: None)
+    assert np.isfinite(res["loss"]) and res["psnr"] > 5
+    assert pano.max() > 1  # the sun: the metrics see values above 1
+    out = tmp_path / "lego_b" / "imgs_test_all"
+    np.testing.assert_array_equal(texr.read_exr(out / "pano.exr"),
+                                  teval.envmap_image(tn.bg_module))
+    cfg = jconfig.compose(BLENDER_FLAGSHIP)
+    jn = jbuild(jax.random.PRNGKey(0), cfg["model"]["arch"], AABB, NEAR_FAR)
+    jn = jckpt.load_state_dict(jn, weights.to_jax_state_dict(tn))
+    jm = jeval.calc_envmap_metrics(
+        jn.bg_module,
+        jexr.imread_any(tmp_path / "data" / "backgrounds" / "lego_bg.exr"))
+    assert set(jm) <= set(res)
+    for k, v in jm.items():
+        tol = 1e-4 if "psnr" in k else 1e-5
+        assert abs(res[k] - v) <= tol, (k, res[k], v)
+
+
+def test_render_loaded_view_matches(tmp_path):
+    """One view of the nerf_synthetic folder, loaded by each package's
+    loader (the same rays), rendered eagerly by both, as
+    test_render_image_matches does for the sphere."""
+    _nerf_synthetic(tmp_path)
+    cfg = {"dataset_name": "blender", "scenedir": "nerf_synthetic/lego"}
+    ours = tload(cfg, str(tmp_path), "test")
+    theirs = jload(cfg, str(tmp_path), "test")
+    np.testing.assert_array_equal(ours["all_rays"], theirs["all_rays"])
+    rays = ours["all_rays"][:256]
+    jn, tn, _ = build_pair("f32", ["model.arch.max_samples_per_ray=32"])
+    jm = jeval.render_image(
+        jn, rays, (16, 16), jax.random.PRNGKey(0), chunk=100,
+        render_fn=lambda n, r, k, c: jrender(n, r, k, is_train=False,
+                                             draw_debug=True)[0])
+    tm = teval.render_image(tn, rays, (16, 16), chunk=100)
+    assert float(np.asarray(jm["acc_map"]).max()) > 0.01  # the box is hit
+    # rgb and acc to 3e-7; depth (2 to 3 units) to an ulp or two
+    for k in ("rgb_map", "acc_map", "depth"):
+        np.testing.assert_allclose(tm[k], np.asarray(jm[k]), rtol=4e-7,
+                                   atol=3e-7, err_msg=k)
 
 
 def test_eval_tier_scales_the_budgets_inside_its_block():
