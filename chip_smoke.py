@@ -68,7 +68,23 @@
    by the trainer with dataset=lego's yaml and put on the card (64M rays,
    2.56 GB); prints the load's seconds, traced host peak and the store's
    bytes; 20 full-width flagship steps from that store, finite loss.
-   Every K1 / K2 / K3 launch of both new paths must be at a held size.
+8. The occupancy-grid path: model=microfacet_tensorf (128^3 occupancy
+   grid, multiplier 2, the normal MLP) at its shipped widths on
+   synthetic_sphere, 600 iterations through an upsample at 300 and a
+   shrink tick at 400 (threshold 0.05); prints the occupied share after
+   every sweep and what the shrink did to the box (on this scene it crops
+   a few voxels off a face in some runs and keeps the box in others).
+   Then the crop, forced as nmf_tpu's own shrink test forces it: the
+   grid set to a block around the sphere, the 300^3 field shrunk to its
+   bounds, written as a resume checkpoint, and 50 more steps resumed
+   from it through the trainer and the test eval on the cropped field.
+9. The LLFF path: a forward-facing sphere scene in fern's layout and size
+   (20 views of 4032 x 3024 PNG, poses_bounds.npy) written and checked on
+   the host as the loader reads it (4x area downsample, NDC rays), then
+   dataset=llff_fern with the default model for 600 iterations.
+   Every K1 / K2 / K3 launch of paths 8 and 9 must be at a size held
+   before it or held after the path on the ids it launched with; each
+   must clear 17 dB.
 
 Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
@@ -400,6 +416,16 @@ def parent_ids(torch, dev, gen, N, R):
     return torch.repeat_interleave(parents, runs)[:N]
 
 
+def walk_ids(torch, dev, gen, N, R, K=96):
+    """N row ids for a size known only at run time: walks of K ids from
+    random starts, moving to the next row every ~11 samples (as
+    ``plane_ids`` along a plane's row), wrapped into R rows."""
+    n = -(-N // K)
+    start = torch.randint(0, R, (n, 1), generator=gen, device=dev)
+    moves = torch.rand((n, K), generator=gen, device=dev) < 1 / 11
+    return ((start + torch.cumsum(moves, dim=1)) % R).reshape(-1)[:N]
+
+
 def binsum_inputs(torch, dev, gen, ids, R, C, dtype):
     """(idx, vals) from ray-walk ids, vals in ``dtype``; 1% of the rows are
     out of range (dropped)."""
@@ -569,26 +595,51 @@ def check_binsum(torch, dev, gen, deferred):
              "kernel": S.BINSUM} | first | {"shapes": shapes}]
 
 
+# a K3 launch at a size first seen on a path is held on its recorded ids
+# only if they touch at least this many rows (a bounce pass's first step
+# can hand it ids that are all out of range, which any kernel "sums")
+HELD_MIN_ROWS = 2
+
+
 class BinsumRecorder:
     """Records the ids of every K3 launch of the train steps numbered in
-    ``steps`` (0-based), through a hook around ``binsum_rows`` where its
-    callers (``ops.grid_sample``, ``ops.masked``) look it up, and a count
-    of ``trainer.train_step`` calls. Entries: (step, idx copy, C, R,
-    dtype)."""
+    ``steps`` (0-based) and, given ``held`` (the (N, C, R, dtype code)
+    sizes the kernel's check held), at each size not in it, of its first
+    launch whose in-range ids touch HELD_MIN_ROWS rows (until then, of the
+    launch that touched most), through a hook around ``binsum_rows`` where
+    its callers (``ops.grid_sample``, ``ops.masked``) look it up, and a
+    count of ``trainer.train_step`` calls. Entries (``entries``, ``new`` by
+    size): (step, idx copy, C, R, dtype); ``touched`` by size: the rows
+    that ``new``'s entry touches."""
 
-    def __init__(self, steps):
+    def __init__(self, steps, held=None):
         from nmf_tpu_torch import trainer
         from nmf_tpu_torch.ops import grid_sample, masked
+        from nmf_tpu_torch.ops.kernels.binsum import DTYPE_CODES
 
         self.steps, self.step, self.entries = set(steps), -1, []
+        self.held, self.new, self.touched = held, {}, {}
+        self.codes = DTYPE_CODES
         self.callers, self.trainer = (grid_sample, masked), trainer
         self.binsum, self.train_step = masked.binsum_rows, trainer.train_step
 
     def __enter__(self):
         def recorded(idx, vals, num_rows):
+            def entry():
+                return (self.step, idx.clone(), vals.shape[1], num_rows,
+                        vals.dtype)
+
             if self.step in self.steps:
-                self.entries.append((self.step, idx.clone(), vals.shape[1],
-                                     num_rows, vals.dtype))
+                self.entries.append(entry())
+            if self.held is not None:
+                size = (idx.numel(), vals.shape[1], num_rows,
+                        self.codes[vals.dtype])
+                best = self.touched.get(size, -1)
+                if size not in self.held and best < HELD_MIN_ROWS:
+                    keep = (idx >= 0) & (idx < num_rows)
+                    touched = idx[keep].unique().numel()
+                    if touched > best:
+                        self.new[size], self.touched[size] = entry(), touched
             return self.binsum(idx, vals, num_rows)
 
         def counted(*args, **kwargs):
@@ -606,16 +657,17 @@ class BinsumRecorder:
         self.trainer.train_step = self.train_step
 
 
-def replay_binsum(torch, dev, gen, entries, synthetic):
-    """K3 on the ids a flagship step launched it with (vals drawn in the
-    dtype it got), held against the plain version and timed L2-cold on the
-    device, beside the synthetic row of the same sizes. Returns the rows
-    and, per recorded step, the device sums of both."""
+def replay_binsum(torch, dev, gen, entries, synthetic, deferred=None):
+    """K3 on the ids a step launched it with (vals drawn in the dtype it
+    got), held against the plain version and timed L2-cold on the device
+    (given ``deferred``, later: its launcher joins that list), beside the
+    synthetic row of the same sizes and ``index_add_`` on the same inputs.
+    Returns the rows."""
     from nmf_tpu_torch.ops.kernels import binsum as S
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     by_sizes = {r["sizes"]: r for r in synthetic}
-    rows, sums = [], {}
+    rows = []
     for step, idx, C, R, dtype in entries:
         N, code = idx.numel(), S.DTYPE_CODES[dtype]
         vals = torch.randn((N, C), generator=gen, device=dev).to(dtype)
@@ -629,20 +681,35 @@ def replay_binsum(torch, dev, gen, entries, synthetic):
                                                               device=dev)),
                             (N, C, R, code, stream))
         synth = by_sizes.get((N, C, R, code), {})
+        idx_in, vals_in = idx[keep].long(), vals[keep]
         row = {"step": step, "sizes": (N, C, R, code),
                "dtype": str(dtype)[6:], "touched_rows": touched,
                "runs": int((idx[1:] != idx[:-1]).sum()) + 1,
                "max_abs_err": err,
-               "device_cold_ms": device_ms(torch, cold, "binsum"),
                "synthetic_device_cold_ms": synth.get("device_cold_ms"),
-               "bound_ms": binsum_bounds(vals, R, touched)[0][0]}
+               "bound_ms": binsum_bounds(vals, R, touched)[0][0],
+               "library_ms": best_ms(torch, lambda: torch.zeros(
+                   (R, C), device=dev).index_add_(0, idx_in,
+                                                  vals_in.float()))}
+        if deferred is None:
+            row["device_cold_ms"] = device_ms(torch, cold, "binsum")
+        else:
+            deferred.append((row, None, cold, "binsum"))
         rows.append(row)
-        total = sums.setdefault(step, {"real": 0.0, "synthetic": 0.0})
+        del cold, vals, idx_in, vals_in
+    return rows
+
+
+def step_sums(rows):
+    """Per recorded step, the device L2-cold sums of ``replay_binsum``'s
+    rows: on the real ids, and on the synthetic ids at the same sizes."""
+    sums = {}
+    for row in rows:
+        total = sums.setdefault(row["step"], {"real": 0.0, "synthetic": 0.0})
         total["real"] += row["device_cold_ms"] or float("nan")
         total["synthetic"] += (row["synthetic_device_cold_ms"]
                                or float("nan"))
-        del cold, vals
-    return rows, sums
+    return sums
 
 
 def check_small_path(torch, dev):
@@ -775,6 +842,60 @@ MAIN_PATHS = (
 )
 
 
+def hold_new_sizes(torch, dev, gen, kernels, label, by_size, recorder,
+                   deferred):
+    """Holds each launch of a path at sizes that the kernels' checks did
+    not hold (the occupancy grid's rows, the NDC box's field rows, the
+    batch the controller chose): K1 and K2 at each new (B, K) with their
+    plain versions on ``composite_inputs`` (both modes, not timed); K3 at
+    each new size on walks of synthetic ids (``walk_ids``, 1% out of
+    range) and on the ids recorded at the size's first launch that touched
+    HELD_MIN_ROWS rows (``recorder``: a BinsumRecorder given ``held``),
+    replayed by ``replay_binsum`` (its device time ``deferred``). Fails if
+    no launch at a new size touched that many rows. The rows join the
+    kernels' shapes; launches made here are not counted (the path's
+    counts were read before)."""
+    from nmf_tpu_torch.ops.kernels import binsum as S
+
+    comp = {k["name"]: k for k in kernels if k["name"].startswith("comp")}
+    held = {n: {r["sizes"] for r in k["shapes"]} for n, k in comp.items()}
+    for B, K in sorted(set().union(*(set(by_size[n]) - held[n]
+                                     for n in comp))):
+        for full in (False, True):
+            fwd, bwd = composite_case(torch, dev, gen, None, B, K, full,
+                                      True, False)
+            for n, row in (("composite_fwd", fwd), ("composite_bwd", bwd)):
+                if (B, K) not in held[n]:
+                    comp[n]["shapes"].append(row | {"path": label})
+        print(f"{label}: K1/K2 at new size B={B} K={K} held, max_abs_err "
+              f"{fwd['max_abs_err']:.3e} / {bwd['max_abs_err']:.3e}")
+    binsum = next(k for k in kernels if k["name"] == "binsum_rows")
+    for size, entry in sorted(recorder.new.items()):
+        step, _, C, R, dtype = entry
+        if recorder.touched[size] < HELD_MIN_ROWS:
+            fail(f"{label}: no K3 launch at size {size} touched "
+                 f"{HELD_MIN_ROWS} rows (at most {recorder.touched[size]}),"
+                 " so its recorded ids cannot hold the kernel")
+        idx, vals = binsum_inputs(torch, dev, gen,
+                                  walk_ids(torch, dev, gen, size[0], R),
+                                  R, C, dtype)
+        rtol, atol = binsum_tolerance(S, idx, vals, R)
+        synth_err = max_err(torch, [(S.binsum_rows(idx, vals, R),
+                                     S.binsum_rows_plain(idx, vals, R))],
+                            rtol, atol,
+                            f"{label} binsum new size {size}, walk ids")
+        # the row itself joins the shapes: its deferred device time lands
+        # in it
+        [row] = replay_binsum(torch, dev, gen, [entry], (), deferred)
+        row.update(shape=f"{label} step {step} N={size[0]} C={C} R={R} "
+                         f"{str(dtype)[6:]}", path=label,
+                   walk_max_abs_err=synth_err)
+        binsum["shapes"].append(row)
+        del idx, vals
+    print(f"{label}: K3 held at {len(recorder.new)} sizes first launched on "
+          "this path, on walk ids and on recorded ids")
+
+
 def reset_counts(kernels):
     for k in kernels:
         k["kernel"].launches = 0
@@ -802,13 +923,15 @@ def counts_at_eval(train, kernels):
 
 
 def drive_main_path(torch, kernels, label, card, n_iters, run,
-                    psnr_bar=PSNR_BAR):
+                    psnr_bar=PSNR_BAR, hold=None):
     """Drive one path with every kernel count set to 0 first: ``run(log)``
     trains and evaluates, and returns (results, train seconds, a note for
-    the summary line). Fails unless the loss is finite, every kernel
-    launched, only at sizes that its check held, and the test PSNR clears
-    ``psnr_bar`` (None: a path without an eval). Returns (launches by
-    kernel, launches by kernel and sizes, results)."""
+    the summary line). Then ``hold(by_size)``, if given, checks the
+    launches at sizes known only at run time (``hold_new_sizes``). Fails
+    unless the loss is finite, every kernel launched, only at sizes that
+    its check held, and the test PSNR clears ``psnr_bar`` (None: a path
+    without an eval). Returns (launches by kernel, launches by kernel and
+    sizes, results)."""
     from nmf_tpu_torch import train
 
     reset_counts(kernels)
@@ -825,6 +948,8 @@ def drive_main_path(torch, kernels, label, card, n_iters, run,
           f"by sizes {by_size}, results {res}")
     if not math.isfinite(res.get("loss", float("nan"))):
         fail(f"{label}: training loss is not finite: {res.get('loss')}")
+    if hold is not None:
+        hold(by_size)
     check_launches(kernels, label, launches, by_size)
     if psnr_bar is not None and not res.get("psnr", 0.0) > psnr_bar:
         fail(f"{label}: test PSNR {res.get('psnr')} <= {psnr_bar} dB")
@@ -1055,27 +1180,31 @@ def sphere_poses(n_views, phi_deg):
 
 def sphere_views(poses, size):
     """The sphere generator's RGBA views (60 degrees wide; alpha from its
-    hit mask), made one at a time as they are consumed."""
+    hit mask), made by ``threaded_map`` ahead of their consumer."""
     import numpy as np
 
     from nmf_tpu_torch.data.ray_utils import (get_ray_directions_blender,
                                               get_rays)
-    from nmf_tpu_torch.data.synthetic import render_sphere_scene
+    from nmf_tpu_torch.data.synthetic import render_sphere_scene, threaded_map
 
     focal = 0.5 * size / np.tan(0.5 * np.deg2rad(60.0))
     dirs = get_ray_directions_blender(size, size, [focal, focal])
     dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
-    for c2w in poses:
+
+    def view(c2w):
         rgb, alpha, _ = render_sphere_scene(*get_rays(dirs, c2w))
-        yield np.concatenate([rgb, alpha[:, None]], -1).reshape(
+        return np.concatenate([rgb, alpha[:, None]], -1).reshape(
             size, size, 4)
+
+    yield from threaded_map(view, poses)
 
 
 @contextlib.contextmanager
-def measured_loads(train, record):
+def measured_loads(train, record, check=None):
     """Within the block, each of the trainer's dataset loads is timed and
     its host allocations traced (numpy's buffers included): appends
-    (split, seconds, traced peak bytes, rays, store bytes) to ``record``."""
+    (split, seconds, traced peak bytes, rays, store bytes) to ``record``;
+    then ``check(ds, split)``, if given, before the trainer goes on."""
     import tracemalloc
 
     load = train.load_dataset
@@ -1091,6 +1220,8 @@ def measured_loads(train, record):
         record.append((split, time.time() - t0, peak,
                        ds["all_rays"].shape[0],
                        ds["all_rays"].nbytes + ds["all_rgbs"].nbytes))
+        if check is not None:
+            check(ds, split)
         return ds
 
     train.load_dataset = measured
@@ -1123,7 +1254,7 @@ def lego_load_path(torch, config):
                            np.deg2rad(60.0))
     print(f"lego-size scene: {LEGO_VIEWS} + {LEGO_TEST_VIEWS} views of "
           f"{LEGO_SIZE}^2 RGBA generated and written in "
-          f"{time.time() - t0:.1f} s (one core)")
+          f"{time.time() - t0:.1f} s (views on up to 8 threads)")
     cfg = config.compose([
         "model=microfacet_tensorf2", "dataset=lego", f"datadir={LEGO_DIR}",
         "dataset.near_far=[2.5,5.5]", f"model.params.n_iters={LEGO_STEPS}",
@@ -1145,6 +1276,254 @@ def lego_load_path(torch, config):
                 f"({train_store / 2**30:.2f} GiB), card peak allocated "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
                 f"process peak RSS so far {rss / 2**30:.2f} GiB")
+        return res, res["train_seconds"], note
+
+    return run
+
+
+# The occupancy-grid path: model=microfacet_tensorf (the NerfAcc-style
+# occupancy grid, 128^3, multiplier 2, a density sweep every 16 iterations,
+# and the normal MLP) at its shipped widths on synthetic_sphere. Cut as the
+# flagship path: 600 iterations, one upsample at 300; and a shrink tick at
+# 400 (the shipped shrink_iters is [], nmf_tpu's tests/test_train.py sets
+# it), so the shrink and the optimizer rebuild after it run on the card.
+# The occupancy threshold is raised from the shipped 0.01 to 0.05: at 0.01
+# the random field's density (~0.018 at build) keeps every cell occupied
+# through 600 iterations, so the grid culls nothing. At 0.05 the grid
+# thresholds at its mean (~0.02-0.04) and culls ~90% of the cells, but
+# cells that hover about the mean stay on the faces of the box: the
+# shrink crops a few voxels off +z in most runs and keeps the whole box
+# in some. The path prints what the shrink did and does not depend on
+# it: the crop runs deterministically in the path after it.
+OCCGRID_ITERS = 600
+OCCGRID = ["model=microfacet_tensorf", "dataset=synthetic_sphere",
+           f"model.params.n_iters={OCCGRID_ITERS}",
+           f"field.upsamp_list=[{OCCGRID_ITERS // 2}]",
+           f"model.arch.sampler.shrink_iters=[{2 * OCCGRID_ITERS // 3}]",
+           "model.arch.sampler.occ_thre=0.05",
+           "device=cuda", f"basedir={LOG_DIR}", "expname=occgrid",
+           "progress_refresh_rate=100"]
+# The LLFF path: fern's layout and size (20 views of 4032 x 3024, focal
+# ~3260 px, downsampled 4x by the loader to 1008 x 756, every 8th view
+# held out), written from the sphere generator as a forward-facing
+# capture, then dataset=llff_fern (NDC rays) with the default model and
+# only the flagship path's cut.
+LLFF_VIEWS, LLFF_W, LLFF_H, LLFF_FOCAL, LLFF_DOWN = 20, 4032, 3024, 3260.0, 4
+LLFF_ITERS = 600
+LLFF = ["dataset=llff_fern", f"datadir={DATA_DIR}",
+        f"model.params.n_iters={LLFF_ITERS}",
+        f"field.upsamp_list=[{LLFF_ITERS // 2}]",
+        "model.arch.sampler.update_list=[]", "device=cuda",
+        f"basedir={LOG_DIR}", "expname=llff", "progress_refresh_rate=100"]
+
+
+@contextlib.contextmanager
+def occgrid_records(shares, shrinks):
+    """Within the block, the occupancy grid's occupied share after each of
+    its density sweeps is appended to ``shares``, and (box before, box
+    after, grid after, whether it cropped) of each field shrink to
+    ``shrinks``."""
+    from nmf_tpu_torch.fields.tensorf import TensorVMSplit
+    from nmf_tpu_torch.samplers.occgrid import OccGridSampler
+
+    sweep, shrink = OccGridSampler.update_density, TensorVMSplit.shrink
+
+    def swept(self, rf):
+        sweep(self, rf)
+        shares.append(float(self.occupancy().float().mean()))
+
+    def shrunk(self, new_aabb):
+        before = self.aabb.detach().cpu().numpy().round(4).tolist()
+        cropped = shrink(self, new_aabb)
+        shrinks.append((before, self.aabb.detach().cpu().numpy().round(
+            4).tolist(), self.grid_size, cropped))
+        return cropped
+
+    OccGridSampler.update_density, TensorVMSplit.shrink = swept, shrunk
+    try:
+        yield
+    finally:
+        OccGridSampler.update_density, TensorVMSplit.shrink = sweep, shrink
+
+
+def occgrid_path(config, trained):
+    """The occupancy-grid path's run for ``drive_main_path``; prints the
+    occupied share after every sweep and each shrink's box and sizes, and
+    leaves the trained model and its results in ``trained``."""
+    from nmf_tpu_torch import train
+
+    def run(log):
+        shares, shrinks = [], []
+        with occgrid_records(shares, shrinks):
+            nmf, res = train.reconstruction(config.compose(OCCGRID), log=log)
+        print(f"occgrid: occupied share after each of {len(shares)} sweeps "
+              "(at build, every 16 iterations and after each event): "
+              + " ".join(f"{x:.4f}" for x in shares))
+        for before, after, grid, cropped in shrinks:
+            print(f"occgrid: shrink of the box {before} -> {after}, grid "
+                  f"{grid}, {'cropped' if cropped else 'kept the box'}")
+        if not shrinks:
+            fail("occgrid: the shrink tick did not run")
+        trained.update(nmf=nmf, res=res)
+        note = (f"; final box {shrinks[-1][1]}, grid {nmf.rf.grid_size}, "
+                f"march {nmf.sampler.n_samples} steps of "
+                f"{nmf.sampler.stepsize:.6f}")
+        return res, res["train_seconds"], note
+
+    return run
+
+
+# The occupancy-grid crop, forced as nmf_tpu's own shrink test forces it
+# (tests/test_train.py, test_occgrid_shrink_fires_and_step_survives): the
+# trained occgrid model's grid is set to 10 in the cells whose centres lie
+# in CROP_BOX (around the sphere of radius 0.8, a different margin on
+# each side) and 0 elsewhere, and the 300^3 field is shrunk to the grid's
+# bounds as NMF.check_schedule does at a shrink tick. The cropped model is
+# written as the run's _latest.th at iteration 600, and the trainer
+# resumes from it (so the checkpoint of a shrunk field loads into a fresh
+# model) for CROP_STEPS steps at full width, then evaluates the test
+# views. Its field rows at the cropped sizes are held as new sizes.
+CROP_BOX = ((-0.95, -0.9, -1.0), (0.9, 1.0, 0.85))
+CROP_STEPS = 50
+OCCGRID_CROP = [*OCCGRID, "resume=true",
+                f"model.params.n_iters={OCCGRID_ITERS + CROP_STEPS}"]
+
+
+def occgrid_crop_path(torch, config, trained):
+    """The crop's run for ``drive_main_path``, on the model that
+    ``occgrid_path`` left in ``trained``. Fails unless the shrink cropped
+    the box to within a grid cell and a voxel of CROP_BOX and the resumed
+    model has the cropped box and grid."""
+    import numpy as np
+
+    from nmf_tpu_torch import ckpt, train
+
+    def run(log):
+        nmf, cfg = trained["nmf"], config.compose(OCCGRID_CROP)
+        sampler, rf = nmf.sampler, nmf.rf
+        G = sampler.density_grid.shape[0]
+        unit = (torch.arange(G, device=sampler.aabb.device) + 0.5) / G
+        lo, hi = (torch.tensor(b, device=unit.device) for b in CROP_BOX)
+        inside = [(c >= lo[i]) & (c <= hi[i]) for i, c in enumerate(
+            sampler.aabb[0, :, None] * (1 - unit) + sampler.aabb[1, :, None]
+            * unit)]
+        block = inside[0][:, None, None] & inside[1][None, :, None] \
+            & inside[2][None, None, :]
+        sampler.density_grid = block.float() * 10.0
+        before = rf.aabb.detach().cpu().numpy()
+        if not rf.shrink(sampler.get_bounds()):
+            fail(f"occgrid crop: the shrink to {CROP_BOX} kept the box "
+                 f"{before.tolist()}")
+        sampler.update(rf, init=True)
+        box = rf.aabb.detach().cpu().numpy()
+        print(f"occgrid crop: the box {before.round(4).tolist()} -> "
+              f"{box.round(4).tolist()}, grid {rf.grid_size}")
+        # the bounds add a margin within one grid cell to the block's
+        # cells; the shrink rounds them to the voxel lattice
+        slack = ((before[1] - before[0]) / G
+                 + (box[1] - box[0]) / (np.asarray(rf.grid_size) - 1))
+        target = np.clip(np.asarray(CROP_BOX), before[0], before[1])
+        if not (np.abs(box - target) <= slack).all():
+            fail(f"occgrid crop: the box {box.tolist()} is not within a "
+                 f"grid cell and a voxel of {CROP_BOX}")
+        name = train._expname(cfg)
+        ckpt.save(LOG_DIR / name / f"{name}_latest.th", nmf, cfg,
+                  extra={"iteration": OCCGRID_ITERS,
+                         "cur_bs": trained["res"]["batch"],
+                         "budget_mult": 1})
+        resumed, res = train.reconstruction(cfg, log=log)
+        if (not torch.equal(resumed.rf.aabb, rf.aabb)
+                or tuple(resumed.rf.grid_size) != tuple(rf.grid_size)):
+            fail(f"occgrid crop: resumed at the box {resumed.rf.aabb}, grid"
+                 f" {resumed.rf.grid_size}, not the cropped {box}, "
+                 f"{rf.grid_size}")
+        gap = res["psnr"] - trained["res"]["psnr"]
+        note = (f"; cropped grid {rf.grid_size}, test PSNR {gap:+.2f} dB "
+                "from the occgrid path's")
+        return res, res["train_seconds"], note
+
+    return run
+
+
+def write_llff_scene(config):
+    """The forward-facing sphere at fern's size in the LLFF layout where
+    dataset=llff_fern looks; returns its folder."""
+    import numpy as np
+
+    from nmf_tpu_torch.data.llff import save_llff_scene
+    from nmf_tpu_torch.data.synthetic import forward_facing_sphere
+
+    scenedir = DATA_DIR / config.compose(LLFF)["dataset"]["scenedir"]
+    t0 = time.time()
+    poses, views, bounds = forward_facing_sphere(LLFF_VIEWS, LLFF_H, LLFF_W,
+                                                 LLFF_FOCAL)
+    save_llff_scene(scenedir, poses, views, LLFF_FOCAL, bounds)
+    size = sum(p.stat().st_size for p in scenedir.rglob("*.png"))
+    print(f"llff scene: {LLFF_VIEWS} views of {LLFF_W} x {LLFF_H} PNG "
+          f"({size} B) and poses_bounds.npy written in "
+          f"{time.time() - t0:.1f} s (views on up to 8 threads); bounds "
+          f"{np.asarray(bounds)[0].tolist()}")
+    return scenedir
+
+
+def check_llff_split(scenedir, ds, split):
+    """Host checks of a loaded LLFF split: the ray count, each image equal
+    to the 4 x 4 block mean of its PNG within 1e-6 (INTER_AREA at an
+    integer factor), near_far (0, 1) and the NDC origins' |z| <= 1 (to
+    1e-6: the origin's shift to z = -near rounds)."""
+    import numpy as np
+
+    from nmf_tpu_torch.data.exr import imread_any
+    from nmf_tpu_torch.data.llff import image_paths
+
+    test = list(range(0, LLFF_VIEWS, 8))
+    ids = (test if split == "test" else
+           [i for i in range(LLFF_VIEWS) if i not in test])
+    w, h = LLFF_W // LLFF_DOWN, LLFF_H // LLFF_DOWN
+    if ds["all_rays"].shape[0] != len(ids) * w * h:
+        fail(f"llff {split}: {ds['all_rays'].shape[0]} rays, expected "
+             f"{len(ids)} x {w} x {h}")
+    paths = image_paths(scenedir)
+    worst = 0.0
+    for k, i in enumerate(ids):
+        png = imread_any(paths[i])[..., :3]
+        block = png.reshape(h, LLFF_DOWN, w, LLFF_DOWN, 3).mean(axis=(1, 3))
+        worst = max(worst, max_abs(
+            ds["all_rgbs"][k * w * h:(k + 1) * w * h].reshape(h, w, 3),
+            block))
+    z = float(np.abs(ds["all_rays"][:, 2]).max())
+    print(f"llff {split}: {len(ids)} views, {ds['all_rays'].shape[0]} rays, "
+          f"images vs the PNGs' 4 x 4 block means max_abs_err {worst:.3e}, "
+          f"near_far {ds['near_far']}, max |NDC origin z| {z!r}")
+    if not worst <= 1e-6:
+        fail(f"llff {split}: an image is off its PNG's block mean by {worst}")
+    if tuple(ds["near_far"]) != (0.0, 1.0) or not ds.get("ndc_ray"):
+        fail(f"llff {split}: not NDC rays ({ds['near_far']})")
+    if not z <= 1 + 1e-6:
+        fail(f"llff {split}: an NDC origin lies at |z| = {z}")
+
+
+def llff_path(torch, config):
+    """Write the LLFF scene (timed), then return the run for
+    ``drive_main_path``: the trainer on dataset=llff_fern, each split
+    checked on the host as it is loaded, before training. Prints each
+    load's seconds and traced host peak and the store's bytes."""
+    from nmf_tpu_torch import train
+
+    scenedir = write_llff_scene(config)
+
+    def run(log):
+        torch.cuda.reset_peak_memory_stats()
+        with measured_loads(train, [], check=lambda ds, split:
+                            check_llff_split(scenedir, ds, split)) as loads:
+            _, res = train.reconstruction(config.compose(LLFF), log=log)
+        for split, seconds, peak, rays, store in loads:
+            print(f"llff load ({split}): {rays} rays in {seconds:.2f} s, "
+                  f"traced host peak {peak} B ({peak / 2**30:.2f} GiB), "
+                  f"rays + RGB {store} B ({store / 2**30:.2f} GiB)")
+        train_store = next(ld[4] for ld in loads if ld[0] == "train")
+        note = (f"; device store {train_store} B, card peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         return res, res["train_seconds"], note
 
     return run
@@ -1248,11 +1627,30 @@ def main():
         torch, kernels, "lego_size", card, LEGO_STEPS,
         lego_load_path(torch, config), psnr_bar=None)
 
+    # ---- the new modules' paths: the occupancy-grid NMF, then an LLFF
+    # scene with NDC rays; their launches at sizes known only at run time
+    # (shrunk and NDC field rows, the chosen batch) are recorded at launch
+    # and held after the path ----
+    binsum = next(k for k in kernels if k["name"] == "binsum_rows")
+    trained = {}
+    for label, path, iters in (
+            ("occgrid", occgrid_path(config, trained), OCCGRID_ITERS),
+            ("occgrid_crop", occgrid_crop_path(torch, config, trained),
+             CROP_STEPS),
+            ("llff", llff_path(torch, config), LLFF_ITERS)):
+        with BinsumRecorder((), held={r["sizes"] for r in
+                                      binsum["shapes"]}) as rec:
+            launches[label], by_size[label], _ = drive_main_path(
+                torch, kernels, label, card, iters, path,
+                hold=lambda sizes, label=label, rec=rec: hold_new_sizes(
+                    torch, dev, gen, kernels, label, sizes, rec, deferred))
+
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
 
     for row, warm, cold, kname in deferred:
-        row["device_ms"] = device_ms(torch, warm, kname)
+        if warm is not None:
+            row["device_ms"] = device_ms(torch, warm, kname)
         if cold is not None:
             row["device_cold_ms"] = device_ms(torch, cold, kname)
     for k in kernels:
@@ -1261,19 +1659,31 @@ def main():
                 p: n[k["name"]].get(row["sizes"], 0)
                 for p, n in by_size.items()}
         k |= k["shapes"][0]  # a kernel's line gives its first shape
-    binsum = next(k for k in kernels if k["name"] == "binsum_rows")
-    binsum["replayed"], binsum["replayed_step_sums"] = replay_binsum(
-        torch, dev, gen, recorded, binsum["shapes"])
-    binsum["studio_replayed"], binsum["studio_replayed_step_sums"] = (
-        replay_binsum(torch, dev, gen, recorder.entries, binsum["shapes"]))
+    for path, entries in (("", recorded), ("studio_", recorder.entries)):
+        binsum[f"{path}replayed"] = replay_binsum(torch, dev, gen, entries,
+                                                  binsum["shapes"])
+        binsum[f"{path}replayed_step_sums"] = step_sums(
+            binsum[f"{path}replayed"])
     print(f"launch floor on {card}: an empty kernel of the composite "
           f"library, back to back {floor['ms']:.4f} ms, device "
           f"{ms_or_not(floor['device_ms'])}")
     for k in kernels:
         for row in k.get("shapes", [k]):
+            if "walk_max_abs_err" in row:
+                print(f"kernel binsum_rows at a new size of {row['path']} "
+                      f"step {row['step']} (N, C, R, dtype code "
+                      f"{row['sizes']}, {row['touched_rows']} rows touched):"
+                      f" max_abs_err {row['max_abs_err']:.3e} (walk ids "
+                      f"{row['walk_max_abs_err']:.3e}), device L2-cold "
+                      f"{ms_or_not(row['device_cold_ms'])}, index_add_ "
+                      f"{row['library_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f}, launches "
+                      f"{row['launches_by_path']}")
+                continue
             if "ms" not in row:
                 print(f"kernel {k['name']} ({row['shape']}): max_abs_err "
-                      f"{row['max_abs_err']:.3e} (checked, not timed)")
+                      f"{row['max_abs_err']:.3e} (checked, not timed), "
+                      f"launches {row['launches_by_path']}")
                 continue
             wrap_bound = ("" if "wrapper_bound_ms" not in row else
                           f" (wrapper's {row['wrapper_bound_ms']:.4f}, "

@@ -1,9 +1,12 @@
 """Instantiate the composed model from a hydra-style config dict
 (``nmf_tpu/builders.py``) for the targets of the ported slices: the
-TensorVMSplit field, the AlphaGridSampler, the TensoRF and Microfacet
-shading models (RandHydraMLPDiffuse, MLPBRDF with ListISH encoders, GGX
-sampling) and the IntegralEquirect envmap. Every other target and knob
-raises ``NotImplementedError`` naming the slice that brings it.
+TensorVMSplit field, the AlphaGridSampler and the occupancy-grid sampler
+(which the upstream NerfAccSampler / Raymarcher / ContinuousAlphagrid
+targets map onto), the TensoRF and Microfacet shading models
+(RandHydraMLPDiffuse, MLPBRDF with ListISH encoders, GGX sampling), the
+MLPNormal / AppDimNormal normal modules and the IntegralEquirect envmap.
+Every other target and knob raises ``NotImplementedError`` naming the
+slice that brings it.
 """
 import math
 
@@ -16,9 +19,11 @@ from .modules.bg import init_integral_equirect
 from .modules.brdf import init_mlp_brdf
 from .modules.brdf_samplers import GGXSampler
 from .modules.ish import ListISH
-from .modules.render_modules import RandHydraMLPDiffuse
+from .modules.render_modules import (AppDimNormal, RandHydraMLPDiffuse,
+                                     init_mlp_normal)
 from .render import NMF
 from .samplers.alphagrid import SUPERSTEP, AlphaGridSampler
+from .samplers.occgrid import OccGridSampler
 
 _LATER = ("is not ported yet: it comes with a later slice of nmf_tpu_torch "
           "(ROADMAP A.2 / A.4)")
@@ -32,7 +37,7 @@ def _clean(cfg):
     return {k: v for k, v in (cfg or {}).items() if not k.startswith("_")}
 
 
-def build_field(generator, cfg, aabb):
+def build_field(generator, cfg, aabb, grid_size=None):
     t = _target(cfg)
     if not (t.endswith("TensorVMSplit") or not t):
         raise NotImplementedError(f"field {t!r} {_LATER}")
@@ -49,16 +54,41 @@ def build_field(generator, cfg, aabb):
                "step_ratio", "gather_dtype", "lr", "lr_net",
                "distance_scale", "smoothing", "numer_grad", "fixed_shape"}
     kw = {k: v for k, v in kw.items() if k in allowed}
+    if grid_size is not None:
+        kw["grid_size"] = grid_size
     if "upsamp_list" in kw:
         kw["upsamp_list"] = tuple(kw["upsamp_list"])
     return init_tensorvm_split(generator, aabb, **kw)
 
 
+# the upstream samplers that nmf_tpu maps onto its occupancy grid
+OCCGRID_TARGETS = ("NerfAccSampler", "Raymarcher", "ContinuousAlphagrid",
+                   "OccGridSampler")
+
+
+def build_occgrid(kw, aabb, near_far):
+    """nmf_tpu's occupancy-grid mapping: ``grid_size`` is the grid's
+    resolution (``grid_reso``) and ``occ_thre`` its ``density_thresh``;
+    ``max_samples``, which nmf_tpu's march never reads, is ignored."""
+    okw = {"grid_reso": int(kw.get("grid_reso", kw.get("grid_size", 128)))}
+    for key, cast in (("update_freq", int), ("ema_decay", float),
+                      ("multiplier", int), ("test_multiplier", float),
+                      ("shrink_iters", tuple)):
+        if key in kw:
+            okw[key] = cast(kw[key])
+    if "occ_thre" in kw or "density_thresh" in kw:
+        okw["density_thresh"] = float(kw.get("density_thresh",
+                                             kw.get("occ_thre")))
+    return OccGridSampler(aabb, near_far=near_far, **okw)
+
+
 def build_sampler(cfg, aabb, near_far):
     t = _target(cfg)
+    kw = _clean(cfg)
+    if any(t.endswith(n) for n in OCCGRID_TARGETS):
+        return build_occgrid(kw, aabb, near_far)
     if t and not t.endswith("AlphaGridSampler"):
         raise NotImplementedError(f"sampler {t!r} {_LATER}")
-    kw = _clean(cfg)
     # the port's march fixes nmf_tpu's defaults of these two
     if int(kw.get("superstep", SUPERSTEP)) != SUPERSTEP:
         raise NotImplementedError(
@@ -146,6 +176,17 @@ def build_model(generator, cfg, app_dim):
     return init_tensorf_shade(app_dim, generator=generator, **_clean(dm_cfg))
 
 
+def build_normal_module(generator, cfg, app_dim):
+    if not cfg:
+        return None
+    t = _target(cfg)
+    if t.endswith("MLPNormal"):
+        return init_mlp_normal(app_dim, generator=generator, **_clean(cfg))
+    if t.endswith("AppDimNormal"):
+        return AppDimNormal()
+    raise NotImplementedError(f"normal module {t!r} {_LATER}")
+
+
 def build_bg(cfg):
     if not cfg:
         return None
@@ -155,18 +196,23 @@ def build_bg(cfg):
     return init_integral_equirect(**_clean(cfg))
 
 
-def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda") -> NMF:
-    """Build the composed model from cfg.model.arch on ``device``. Initial
-    values are drawn on the CPU from a generator seeded with ``seed``, so a
-    seed gives the same model on every device."""
+def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
+              grid_size=None) -> NMF:
+    """Build the composed model from cfg.model.arch on ``device``, its field
+    at ``grid_size`` when given (a checkpoint's). Initial values are drawn
+    on the CPU from a generator seeded with ``seed``, so a seed gives the
+    same model on every device."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but torch sees no CUDA device; "
                            "pass device=cpu to run on the CPU")
-    for key in ("normal_module", "hdr", "use_predicted_normals",
-                "detach_inter"):
+    for key in ("hdr", "use_predicted_normals", "detach_inter"):
         if arch_cfg.get(key):
             raise NotImplementedError(f"model.arch.{key} {_LATER}")
+    if arch_cfg.get("normal_module") and not arch_cfg.get(
+            "align_pred_norms", True):
+        raise NotImplementedError(
+            f"model.arch.align_pred_norms=false with a normal module {_LATER}")
     if arch_cfg.get("mlp_dtype") not in (None, "f32"):
         raise NotImplementedError(
             f"model.arch.mlp_dtype={arch_cfg['mlp_dtype']!r} (bf16 MLP "
@@ -178,14 +224,21 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda") -> NMF:
         if int(arch_cfg.get(key, -1) or -1) > 0:
             raise NotImplementedError(f"model.arch.{key} {_LATER}")
     gen = torch.Generator().manual_seed(int(seed))
-    rf = build_field(gen, arch_cfg.get("rf", {}), aabb)
+    rf = build_field(gen, arch_cfg.get("rf", {}), aabb, grid_size)
     sampler = build_sampler(arch_cfg.get("sampler", {}), aabb, near_far)
+    if rf.fixed_shape and isinstance(sampler, OccGridSampler):
+        raise ValueError(
+            "field.fixed_shape requires the AlphaGridSampler march "
+            "(occupancy-grid samplers have no live-resolution step "
+            "scaling); disable one")
     model = build_model(gen, arch_cfg.get("model", {}), rf.app_dim)
     bg = build_bg(arch_cfg.get("bg_module"))
+    normal_module = build_normal_module(gen, arch_cfg.get("normal_module"),
+                                        rf.app_dim)
     tm_t = _target(arch_cfg.get("tonemap") or {})
     if tm_t and "SRGB" not in tm_t:
         raise NotImplementedError(f"tonemap {tm_t!r} {_LATER}")
-    nmf = NMF(rf, sampler, model, bg_module=bg,
+    nmf = NMF(rf, sampler, model, bg_module=bg, normal_module=normal_module,
               max_samples_per_ray=arch_cfg.get("max_samples_per_ray", -1),
               recur_samples_per_ray=arch_cfg.get("recur_samples_per_ray",
                                                  -1),

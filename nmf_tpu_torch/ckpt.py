@@ -7,8 +7,9 @@ paths), and the geometry nmf_tpu's builders take. It holds only numpy
 arrays and Python builtins, so nmf_tpu reads the port's files without
 torch, and the port reads nmf_tpu's without JAX.
 
-``load`` rebuilds the model from the saved config through ``build_nmf`` and
-copies the arrays in by path (``weights.from_jax_state_dict``). A format-1
+``load`` rebuilds the model from the saved config through ``build_nmf``, at
+the saved box and grid size (a shrunk or upsampled field's), and copies
+the arrays in by path (``weights.from_jax_state_dict``). A format-1
 file (nmf_tpu's whole pickled flax pytree, no ``format`` key) needs JAX to
 unpickle, so the port refuses it.
 """
@@ -78,6 +79,7 @@ def load(path, device="cuda"):
     payload = _read(path)
     cfg = payload["config"]
     nmf = build_nmf(cfg["model"]["arch"], payload["aabb"],
-                    tuple(payload["near_far"]), device=device)
+                    tuple(payload["near_far"]), device=device,
+                    grid_size=tuple(payload["grid_size"]) or None)
     weights.from_jax_state_dict(nmf, payload["state_dict"])
     return nmf, cfg, payload.get("extra", {})

@@ -168,8 +168,6 @@ def load_own_data(datadir, split="train", downsample=1.0, white_bg=True):
 
 # file loaders of nmf_tpu that the port does not have yet, and why
 _NOT_PORTED = {
-    "llff": "the LLFF loader comes with NDC sampling, in the occupancy-grid "
-            "sampler's slice (ROADMAP A.3)",
     "nsvf": "the NSVF loader has no shipped config yet (ROADMAP A.4)",
     "tankstemple": "the Tanks and Temples loader has no shipped config yet "
                    "(ROADMAP A.4)",
@@ -177,10 +175,11 @@ _NOT_PORTED = {
 
 
 def load_dataset(cfg_dataset, datadir=None, split="train", n_vis=-1):
-    """Dispatch on ``dataset_name``: the file scenes ``blender`` and
-    ``own_data`` under ``datadir/scenedir``, and the procedural scenes
-    ``synthetic_sphere`` / ``synthetic_shiny`` / ``synthetic_cluster`` /
-    ``synthetic_studio``, which carry all_norms, all_tints and gt_bg_im.
+    """Dispatch on ``dataset_name``: the file scenes ``blender``,
+    ``own_data`` and ``llff`` (``data/llff.py``) under
+    ``datadir/scenedir``, and the procedural scenes ``synthetic_sphere`` /
+    ``synthetic_shiny`` / ``synthetic_cluster`` / ``synthetic_studio``,
+    which carry all_norms, all_tints and gt_bg_im.
     The yaml's ``near_far`` overrides the scene's."""
     name = cfg_dataset["dataset_name"]
     if name == "blender":
@@ -189,6 +188,13 @@ def load_dataset(cfg_dataset, datadir=None, split="train", n_vis=-1):
             downsample=cfg_dataset.get("downsample_train", 1.0),
             white_bg=cfg_dataset.get("white_bg", True), n_vis=n_vis,
             load_normals=cfg_dataset.get("stack_norms", False))
+    elif name == "llff":
+        from .llff import load_llff
+
+        ds = load_llff(os.path.join(datadir, cfg_dataset["scenedir"]),
+                       split=split,
+                       downsample=cfg_dataset.get("downsample_train", 4.0),
+                       ndc_ray=cfg_dataset.get("ndc_ray", True))
     elif name == "own_data":
         ds = load_own_data(os.path.join(datadir, cfg_dataset["scenedir"]),
                            split=split,

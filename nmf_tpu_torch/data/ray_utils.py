@@ -1,6 +1,6 @@
 """Camera ray generation (host-side numpy; the port's own copy of
 ``nmf_tpu/data/ray_utils.py``: get_ray_directions,
-get_ray_directions_blender, get_rays, pose_spherical)."""
+get_ray_directions_blender, get_rays, ndc_rays_blender, pose_spherical)."""
 import numpy as np
 
 
@@ -38,6 +38,23 @@ def get_rays(directions, c2w):
     rays_o = np.broadcast_to(np.asarray(c2w[:3, 3]), rays_d.shape)
     return rays_o.reshape(-1, 3).astype(np.float32), \
         rays_d.reshape(-1, 3).astype(np.float32)
+
+
+def ndc_rays_blender(H, W, focal, near, rays_o, rays_d):
+    """World rays -> NDC rays: shift each origin to the plane z = -near,
+    then project (the LLFF convention: camera looking down -z)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+    return (np.stack([o0, o1, o2], -1).astype(np.float32),
+            np.stack([d0, d1, d2], -1).astype(np.float32))
 
 
 def pose_spherical(theta_deg, phi_deg, radius):

@@ -1,6 +1,8 @@
 """Procedural scenes with analytic ground truth (the port's own copy of
 ``nmf_tpu/data/synthetic.py``), so end-to-end training runs without
-external data: the red ``synthetic_sphere``, and the protocol scenes
+external data: the red ``synthetic_sphere`` (also as a forward-facing
+capture, ``forward_facing_sphere``, for the LLFF layout), and the protocol
+scenes
 ``synthetic_shiny`` / ``_cluster`` / ``_studio`` (spheres of tabulated
 materials under an analytic HDR environment, split-sum direct shading plus
 a one-bounce Monte Carlo interreflection correction, two elevation rings or
@@ -14,6 +16,7 @@ under a ``torch_`` prefix: the cache never serves nmf_tpu's files, nor
 nmf_tpu the port's.
 """
 import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +82,51 @@ def make_sphere_dataset(n_views=8, H=64, W=64, radius=4.0, seed=0,
                                dtype=np.float32),
         "white_bg": True,
     }
+
+
+# rows of a forward-facing view rendered in one task of the thread pool
+BAND_ROWS = 256
+
+
+def threaded_map(fn, items):
+    """Yields ``fn`` of each of ``items`` in order, computed on up to 8
+    threads (numpy releases the interpreter lock in its array
+    operations)."""
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        yield from pool.map(fn, items)
+
+
+def forward_facing_sphere(n_views=20, H=3024, W=4032, focal=3260.0):
+    """The red sphere seen from a forward-facing capture: cameras on a grid
+    five wide in the plane z = 4, 0.2 apart and centred, all looking down
+    -z (Blender axes: right, up, back). Returns (poses (n_views, 3, 4),
+    views, bounds (n_views, 2)): ``views`` yields each (H, W, 3) image on
+    white in turn, rendered in bands of ``BAND_ROWS`` rows by
+    ``threaded_map`` (a view of fern's 4032 x 3024 is 12.2M rays);
+    ``bounds`` are the near and far depths of the sphere (radius 0.8)
+    along each camera's axis, 0.1 wider on each side."""
+    cols = np.arange(n_views) % 5
+    rows = np.arange(n_views) // 5
+    centers = np.stack([0.2 * (cols - 2.0), 0.2 * (rows - (rows.max() / 2)),
+                        np.full(n_views, 4.0)], -1)
+    poses = np.concatenate([np.broadcast_to(np.eye(3), (n_views, 3, 3)),
+                            centers[..., None]], -1)
+    bounds = np.stack([centers[:, 2] - 0.9, centers[:, 2] + 0.9], -1)
+    dirs = get_ray_directions_blender(H, W, [focal, focal])
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+
+    def view(c2w):
+        img = np.empty((H, W, 3), np.float32)
+
+        def render_band(r0):
+            band = dirs[r0:r0 + BAND_ROWS]
+            rgb, _, _ = render_sphere_scene(*get_rays(band, c2w))
+            img[r0:r0 + BAND_ROWS] = rgb.reshape(band.shape)
+
+        list(threaded_map(render_band, range(0, H, BAND_ROWS)))
+        return img
+
+    return poses, (view(c2w) for c2w in poses), bounds
 
 
 _SHINY_SPHERES = [

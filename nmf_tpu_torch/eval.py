@@ -75,9 +75,11 @@ def _device(nmf: NMF):
 
 
 @torch.no_grad()
-def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None):
-    """Render (N, 6) numpy rays on a white background in fixed-size chunks
-    (the tail chunk padded with copies of ray 0) -> {map: (N, ...) numpy}.
+def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None,
+                        ndc_ray=False):
+    """Render (N, 6) numpy rays (NDC rays with ``ndc_ray``) on a white
+    background in fixed-size chunks (the tail chunk padded with copies of
+    ray 0) -> {map: (N, ...) numpy}.
 
     Ray i goes into chunk i % n_chunks, as nmf_tpu interleaves them so that
     every chunk gets the image-average ray mix; outputs come back in the
@@ -104,7 +106,8 @@ def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None):
     for i in range(n_chunks):
         r = torch.from_numpy(rays[i * chunk:(i + 1) * chunk]).to(dev)
         ims, _ = render(nmf, r, is_train=False, draw_debug=True,
-                        draws=draws.scoped(f"chunk{i}"), bg_cache=bg_cache)
+                        draws=draws.scoped(f"chunk{i}"), bg_cache=bg_cache,
+                        ndc_ray=ndc_ray)
         for k, v in ims.items():
             outs.setdefault(k, []).append(v)
     out = {k: torch.cat(v)[:N].cpu().numpy() for k, v in outs.items()}
@@ -113,9 +116,10 @@ def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None):
     return out
 
 
-def render_image(nmf: NMF, rays, hw, chunk=4096, draws=None):
+def render_image(nmf: NMF, rays, hw, chunk=4096, draws=None, ndc_ray=False):
     H, W = hw
-    maps = render_rays_chunked(nmf, rays, chunk=chunk, draws=draws)
+    maps = render_rays_chunked(nmf, rays, chunk=chunk, draws=draws,
+                               ndc_ray=ndc_ray)
     return {k: v.reshape(H, W, *v.shape[1:]) for k, v in maps.items()}
 
 
@@ -222,7 +226,9 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
     {prefix}{i:03d}.png, one folder of PNGs per map,
     stats{prefix}.yaml, mean.txt and the envmap as {prefix}pano.png and
     {prefix}pano.exr (FLOAT, ZIPS).
-    Random draws come from a generator seeded with ``seed``."""
+    Random draws come from a generator seeded with ``seed``. The rays are
+    NDC rays where the dataset says so (``ndc_ray``, LLFF scenes), which
+    nmf_tpu's eval does not read (ROADMAP C)."""
     chunk = nmf.eval_batch_size
     draws = Draws(torch.Generator(device=_device(nmf)).manual_seed(seed))
     W, H = dataset["img_wh"]
@@ -239,7 +245,8 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + (1 - gt[..., 3:])
         maps = render_image(nmf, dataset["all_rays"][px], (H, W), chunk=chunk,
-                            draws=draws.scoped(f"image{img_i}"))
+                            draws=draws.scoped(f"image{img_i}"),
+                            ndc_ray=dataset.get("ndc_ray", False))
         pred = np.clip(maps["rgb_map"], 0, 1)
         name = f"{prefix}{img_i:03d}.png"
         stats["psnr"].append(utils.rgb_psnr(pred, gt))

@@ -18,9 +18,13 @@ masked before every filter (whose transpose would reach into the padding)
 and before ``abs`` (whose gradient at 0 is not 0), so the padding's
 gradient is exactly zero.
 
+``shrink`` crops the planes and lines to a box aligned to the voxel lattice
+(the occupancy-grid sampler's ``shrink_iters``); the quad and pair tables
+that the queries gather (``ops/grid_sample.py``) are derived from the
+parameters at every query, so they follow the new sizes.
+
 Not ported yet: ``compute_normals`` on its own, autodiff normals
-(``numer_grad=False``), ``shrink`` (only the occupancy-grid sampler calls
-it) and ``dbasis``.
+(``numer_grad=False``) and ``dbasis``.
 """
 import math
 
@@ -132,6 +136,21 @@ def pad_factor_grid(fg: FactorGrid, pad_gs):
     return fg
 
 
+@torch.no_grad()
+def shrink_factor_grid(fg: FactorGrid, t_l, b_r):
+    """Crop fg's planes and lines (in place) to the voxel ids [t_l, b_r)
+    of each world axis."""
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        v = VEC_MODE[i]
+        fg.lines[i] = nn.Parameter(
+            fg.lines[i][:, int(t_l[v]):int(b_r[v])].clone())
+        fg.planes[i] = nn.Parameter(
+            fg.planes[i][:, int(t_l[m1]):int(b_r[m1]),
+                         int(t_l[m0]):int(b_r[m0])].clone())
+    return fg
+
+
 class TensorVMSplit(nn.Module):
     """Split density/appearance VM field."""
 
@@ -172,21 +191,24 @@ class TensorVMSplit(nn.Module):
             "live_reso", None if live_reso is None else torch.as_tensor(
                 live_reso, dtype=torch.float32))
 
-    # ---- geometry (host-side python floats) ----
+    # ---- geometry (host-side python floats, from the f32 box and its f32
+    # extent, as nmf_tpu computes them) ----
     def _aabb_np(self):
-        return self.aabb.detach().cpu().numpy().astype(np.float64)
+        return self.aabb.detach().cpu().numpy()
+
+    def _extent_np(self):
+        aabb = self._aabb_np()
+        return aabb[1] - aabb[0]
 
     @property
     def stepsize(self) -> float:
-        aabb = self._aabb_np()
-        units = (aabb[1] - aabb[0]) / (np.asarray(self.grid_size,
-                                                  np.float64) - 1)
+        units = self._extent_np().astype(np.float64) / (
+            np.asarray(self.grid_size, np.float64) - 1)
         return float(units.min() * self.step_ratio)
 
     @property
     def aabb_diag(self) -> float:
-        aabb = self._aabb_np()
-        return float(np.linalg.norm(aabb[1] - aabb[0]))
+        return float(np.linalg.norm(self._extent_np()))
 
     @property
     def n_samples(self) -> int:
@@ -207,8 +229,7 @@ class TensorVMSplit(nn.Module):
         """stepsize at the live resolution over stepsize at grid_size."""
         if not self.fixed_shape:
             return 1.0
-        extent = self._aabb_np()
-        extent = extent[1] - extent[0]
+        extent = self._extent_np().astype(np.float64)
         live = np.asarray(self.live_reso.tolist(), np.float64)
         return float((extent / (live - 1)).min() * self.step_ratio
                      ) / self.stepsize
@@ -393,6 +414,38 @@ class TensorVMSplit(nn.Module):
                 fg.lines[i] = nn.Parameter(resize_align_corners_1d(
                     fg.lines[i], int(res_target[VEC_MODE[i]])))
         self.grid_size = tuple(int(r) for r in res_target)
+
+    def shrink(self, new_aabb):
+        """Crop the grids to ``new_aabb`` (2, 3), widened to the voxel
+        lattice, in place (the parameters are replaced, so the optimizer
+        must be rebuilt). Returns whether anything changed: not when the
+        aligned box is the current one."""
+        if self.fixed_shape:
+            raise NotImplementedError(
+                "field.fixed_shape does not support rf.shrink (occgrid "
+                "shrink_iters); use the default exact-shape mode for "
+                "shrinking configs")
+        aabb = self._aabb_np()
+        gs = np.asarray(self.grid_size)
+        units = (aabb[1] - aabb[0]) / (gs - 1)
+        t_l = np.round((np.asarray(new_aabb[0]) - aabb[0]) / units
+                       ).astype(int)
+        b_r = np.round((np.asarray(new_aabb[1]) - aabb[0]) / units
+                       ).astype(int) + 1
+        b_r = np.minimum(b_r, gs)
+        t_l = np.clip(t_l, 0, None)
+        t_l_r = t_l / (gs - 1)
+        b_r_r = (b_r - 1) / (gs - 1)
+        correct_aabb = np.stack([(1 - t_l_r) * aabb[0] + t_l_r * aabb[1],
+                                 (1 - b_r_r) * aabb[0] + b_r_r * aabb[1]])
+        if np.array_equal(correct_aabb, aabb):
+            return False
+        shrink_factor_grid(self.density_rf, t_l, b_r)
+        shrink_factor_grid(self.app_rf, t_l, b_r)
+        self.aabb = torch.as_tensor(correct_aabb, dtype=torch.float32,
+                                    device=self.aabb.device)
+        self.grid_size = tuple(int(s) for s in b_r - t_l)
+        return True
 
 
 def init_tensorvm_split(generator, aabb, density_n_comp=16,

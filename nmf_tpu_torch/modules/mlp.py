@@ -7,10 +7,13 @@ distributions of nmf_tpu's initializers: the default draws weights and
 biases from U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (``nn.Linear``'s default);
 ``kaiming`` (bound sqrt(6 / fan_in)), ``xavier`` (sqrt(2) sqrt(6 / (fan_in +
 fan_out))) and ``xavier_sigmoid`` (sqrt(6 / (fan_in + fan_out))) draw
-uniform weights and zero biases.
+uniform weights and zero biases. ``bias=False`` drops the final layer's
+bias (nmf_tpu's ``create_mlp(bias=False)``; its state dict then has no
+``['b']`` key for that layer).
 """
 import math
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -27,13 +30,14 @@ def _weight_bound(initializer, fan_in, fan_out):
 
 class MLP(nn.Module):
     def __init__(self, input_w, output_w, num_layers, hidden_w=128,
-                 generator=None, initializer=None):
+                 generator=None, initializer=None, bias=True):
         super().__init__()
         if num_layers < 1:
             raise ValueError("MLP needs at least one layer")
         widths = ([input_w] + [hidden_w] * (num_layers - 1) + [output_w])
+        last = len(widths) - 2
         self.layers = nn.ModuleList(
-            nn.Linear(widths[i], widths[i + 1])
+            nn.Linear(widths[i], widths[i + 1], bias=bias or i < last)
             for i in range(len(widths) - 1))
         for layer in self.layers:
             bound = _weight_bound(initializer, layer.in_features,
@@ -42,6 +46,8 @@ class MLP(nn.Module):
             if default:
                 bound = 1.0 / math.sqrt(layer.in_features)
             nn.init.uniform_(layer.weight, -bound, bound, generator=generator)
+            if layer.bias is None:
+                continue
             if default:
                 nn.init.uniform_(layer.bias, -bound, bound,
                                  generator=generator)
@@ -55,3 +61,13 @@ class MLP(nn.Module):
             if i < n - 1:
                 x = F.relu(x)
         return x
+
+
+@torch.no_grad()
+def scale_final_layer(mlp: MLP, uniform_range: float, generator=None):
+    """Redraw the final layer's weight from U(-uniform_range,
+    uniform_range) (nmf_tpu's ``scale_final_layer(uniform_range=...)``, the
+    near-zero start of the normal network)."""
+    nn.init.uniform_(mlp.layers[-1].weight, -uniform_range, uniform_range,
+                     generator=generator)
+    return mlp

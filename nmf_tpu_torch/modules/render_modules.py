@@ -1,13 +1,15 @@
-"""Appearance and material heads (``nmf_tpu/modules/render_modules.py``):
-``PE``, ``MLPRenderFea`` (tensorf) and ``RandHydraMLPDiffuse``
-(microfacet)."""
+"""Appearance, material and normal heads
+(``nmf_tpu/modules/render_modules.py``): ``PE``, ``MLPRenderFea``
+(tensorf), ``RandHydraMLPDiffuse`` (microfacet), and the predicted-normal
+heads ``MLPNormal`` and ``AppDimNormal``."""
 import math
 
 import torch
 import torch.nn as nn
 
-from ..ops.safemath import inv_sigmoid, positional_encoding
-from .mlp import MLP
+from ..ops.safemath import (integrated_pos_enc, inv_sigmoid, normalize,
+                            positional_encoding)
+from .mlp import MLP, scale_final_layer
 
 
 class PE(nn.Module):
@@ -122,3 +124,61 @@ class RandHydraMLPDiffuse(nn.Module):
         roughness_v = float(inv_sigmoid(roughness).mean())
         sr = self.start_roughness
         self.roughness_bias.add_(math.log(sr / (1 - sr)) - roughness_v)
+
+
+class MLPNormal(nn.Module):
+    """Predicted normals: normalize(MLP([xyz] + [features] + IPE(xyz, size)
+    + PE(features))), each part present by ``pospe`` / ``feape`` (>= 0 adds
+    the raw input, > 0 its encoding of that many degrees); the IPE's
+    variance is ``size_multi`` x the sample's footprint (xyz's 4th
+    channel)."""
+
+    def __init__(self, mlp, pospe=12, feape=-1, size_multi=2.5e-3, lr=1e-3):
+        super().__init__()
+        self.mlp = mlp
+        self.pospe = int(pospe)
+        self.feape = int(feape)
+        self.size_multi = float(size_multi)
+        self.lr = float(lr)
+
+    def forward(self, pts, features, geo_norms=None):
+        p3 = pts[..., :3]
+        indata = []
+        if self.pospe >= 0:
+            indata.append(p3)
+        if self.feape >= 0:
+            indata.append(features)
+        if self.pospe > 0:
+            size = pts[..., 3:4].expand(p3.shape)
+            indata.append(integrated_pos_enc((p3, self.size_multi * size), 0,
+                                             self.pospe))
+        if self.feape > 0:
+            indata.append(positional_encoding(features, self.feape))
+        return normalize(self.mlp(torch.cat(indata, dim=-1)))
+
+
+def init_mlp_normal(in_channels, generator=None, pospe=12, feape=-1,
+                    hidden_w=128, num_layers=4, initializer="kaiming",
+                    size_multi=2.5e-3, lr=1e-3, **_):
+    """nmf_tpu's ``init_mlp_normal``: a ``num_layers`` x ``hidden_w`` MLP
+    whose final layer has no bias and starts at U(-1e-5, 1e-5)."""
+    in_mlpC = 0
+    if pospe >= 0:
+        in_mlpC += 2 * pospe * 3 + 3
+    if feape >= 0:
+        in_mlpC += 2 * max(feape, 0) * in_channels + in_channels
+    mlp = MLP(in_mlpC, 3, num_layers=num_layers, hidden_w=hidden_w,
+              generator=generator, initializer=initializer, bias=False)
+    scale_final_layer(mlp, 1e-5, generator=generator)
+    return MLPNormal(mlp, pospe=pospe, feape=feape, size_multi=size_multi,
+                     lr=lr)
+
+
+class AppDimNormal(nn.Module):
+    """Normals read from the first three appearance-feature channels."""
+
+    lr = 1.0
+
+    def forward(self, pts, features, geo_norms=None):
+        raw = features[..., 0:3]
+        return raw / (torch.linalg.norm(raw, dim=-1, keepdim=True) + 1e-8)

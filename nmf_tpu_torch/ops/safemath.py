@@ -69,3 +69,25 @@ def positional_encoding(positions, freqs: int):
     pts = (positions[..., None] * freq_bands).reshape(
         positions.shape[:-1] + (freqs * positions.shape[-1],))
     return torch.cat([torch.sin(pts), torch.cos(pts)], dim=-1)
+
+
+def expected_sin(x, x_var, t=SAFE_TRIG_T):
+    """Mean and variance of sin(z), z ~ N(x, x_var) (mip-NeRF eq. 7)."""
+    y = torch.exp(-0.5 * x_var) * torch.sin(torch.remainder(x, t))
+    y_var = 0.5 * (1 - torch.exp(-2 * x_var)
+                   * torch.cos(torch.remainder(2 * x, t))) - y ** 2
+    return y, torch.clamp(y_var, min=0)
+
+
+def integrated_pos_enc(x_coord, min_deg: int, max_deg: int):
+    """Diagonal-covariance integrated positional encoding of (x, x_cov_diag),
+    each (..., D) -> (..., 2 * D * (max_deg - min_deg)), with the scales
+    2^(i - 1) of nmf_tpu's (and the upstream repository's) convention."""
+    x, x_cov_diag = x_coord
+    scales = torch.tensor([2.0 ** (i - 1) for i in range(min_deg, max_deg)],
+                          dtype=x.dtype, device=x.device)
+    shape = x.shape[:-1] + (-1,)
+    y = (x[..., None, :] * scales[:, None]).reshape(shape)
+    y_var = (x_cov_diag[..., None, :] * scales[:, None] ** 2).reshape(shape)
+    return expected_sin(torch.cat([y, y + 0.5 * math.pi], dim=-1),
+                        torch.cat([y_var, y_var], dim=-1))[0]

@@ -13,10 +13,16 @@ into ``render`` one recursion level deeper for its retraced bounce rays,
 whose sample positions keep their gradient to the bounce directions. The
 background is a constant colour or, for a retrace pass, the envmap.
 
+With a normal module, the shading sees ``normalize(lam * predicted + (1 -
+lam) * geometric)`` normals (``lam``: ``predicted_normal_lambda``, 0 in
+the ported configs) and the primary pass reports the predicted normals'
+misalignment as ``prediction_loss``. With ``ndc_ray`` the primary pass
+marches NDC rays (``sampler.sample_ndc``); retrace passes march world
+rays.
+
 Not ported yet: ``merge_runs``, two-stage shading
-(``app_samples_per_ray``), normal modules, ground-truth normals and
-``detach_inter``; a configuration asking for them raises
-``NotImplementedError`` when built.
+(``app_samples_per_ray``), ground-truth normals and ``detach_inter``; a
+configuration asking for them raises ``NotImplementedError`` when built.
 """
 import torch
 import torch.nn as nn
@@ -26,6 +32,7 @@ from .ops.kernels.composite import transmittance_weights
 from .ops.losses import distortion_loss
 from .ops.masked import row_mask_sum
 from .ops.resample import resample_pdf
+from .ops.safemath import normalize
 from .ops.tonemap import srgb_tonemap
 
 
@@ -33,16 +40,18 @@ class NMF(nn.Module):
     """Field + sampler + shading model (+ envmap)."""
 
     def __init__(self, rf, sampler, model, bg_module=None,
-                 max_samples_per_ray=-1, recur_samples_per_ray=-1,
-                 proposal_samples_per_ray=-1, proposal_pad=0.01,
-                 recur_stepmul=1.0, eval_batch_size=4096, lr_scale=1.0):
+                 normal_module=None, max_samples_per_ray=-1,
+                 recur_samples_per_ray=-1, proposal_samples_per_ray=-1,
+                 proposal_pad=0.01, recur_stepmul=1.0, eval_batch_size=4096,
+                 lr_scale=1.0):
         super().__init__()
         self.rf = rf
         self.sampler = sampler
         self.model = model
         self.bg_module = bg_module
-        # nmf_tpu's predicted/geometric normal blend; 0 without a normal
-        # module (kept so its state dict maps one to one)
+        self.normal_module = normal_module
+        # nmf_tpu's predicted/geometric normal blend (0 unless a
+        # geonorm_iters schedule, not ported, moves it)
         self.register_buffer("predicted_normal_lambda", torch.zeros(()))
         self.max_samples_per_ray = int(max_samples_per_ray)
         self.recur_samples_per_ray = int(recur_samples_per_ray)
@@ -54,11 +63,16 @@ class NMF(nn.Module):
 
     def check_schedule(self, iteration: int) -> bool:
         """Host-side schedule tick, in place. Returns whether the optimizer
-        must be rebuilt. The sampler's mask rebuild sees the field before
-        this tick's upsample, as in nmf_tpu."""
+        must be rebuilt. The sampler's mask rebuild or density sweep sees
+        the field before this tick's upsample, as in nmf_tpu; at one of
+        the sampler's ``shrink_iters`` the field is then cropped to the
+        sampler's occupied box (a rebuild even when the box stays)."""
         m_changed = self.model.check_schedule(iteration)
         s_changed = self.sampler.check_schedule(iteration, self.rf)
         r_changed = self.rf.check_schedule(iteration)
+        if iteration in getattr(self.sampler, "shrink_iters", ()):
+            self.rf.shrink(self.sampler.get_bounds())
+            r_changed = True
         changed = m_changed or s_changed or r_changed
         if changed:
             self.sampler.update(self.rf, init=True)
@@ -92,22 +106,24 @@ def reflection_fn(nmf: NMF, is_train, recur, bg_cache, thin_out):
 
 
 def debug_maps(weight, valid, acc_map, z_vals, xyz_normed, world_normal,
-               rgb, debug, bg):
+               pred_normal, rgb, debug, bg):
     """The eval maps of nmf_tpu's ``render(draw_debug=True)``: depth, the
-    composited world normal (``world_normal``; zeros for a model without
-    normals) and predicted normal (``normal``: zeros, there is no normal
-    module), both over a background of ones, the valid sample count, the
-    z < 0 cross-section and the shading model's per-sample maps (tint,
-    spec, diffuse, roughness, albedo) composited over ``bg``."""
+    composited world normal (``world_normal``) and predicted normal
+    (``normal``; each zeros where the pass has none), both over a
+    background of ones, the valid sample count, the z < 0 cross-section
+    and the shading model's per-sample maps (tint, spec, diffuse,
+    roughness, albedo) composited over ``bg``."""
     B, K = weight.shape
     eweight = weight[..., None]
     pw = torch.where(valid, weight, torch.zeros_like(weight))[..., None]
     bg1 = (1 - acc_map[..., None])
-    if world_normal is None:
-        wn = torch.zeros_like(acc_map)[:, None].expand(B, 3)
-    else:
-        wn = row_mask_sum(world_normal.reshape(B, K, 3) * pw, valid)
-    pn = torch.zeros_like(wn)
+
+    def composite(normals):
+        if normals is None:
+            return torch.zeros_like(acc_map)[:, None].expand(B, 3)
+        return row_mask_sum(normals.reshape(B, K, 3) * pw, valid)
+
+    wn, pn = composite(world_normal), composite(pred_normal)
     cs_mask = (xyz_normed.reshape(B, K, -1)[..., 2] < 0) & valid
     maps = {
         "depth": (weight * z_vals).sum(dim=1),
@@ -126,14 +142,17 @@ def debug_maps(weight, valid, acc_map, z_vals, xyz_normed, world_normal,
 
 def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
            draws=None, recur=0, override_near=None, stepmul=1.0,
-           tonemap=True, start_mipval=None, draw_debug=False, bg_cache=None):
+           tonemap=True, start_mipval=None, draw_debug=False, bg_cache=None,
+           ndc_ray=False):
     """Render a ray batch (B, 6) -> (images, stats).
 
     images: rgb_map (B, 3), acc_map (B,) and, with ``draw_debug``, the
     maps of ``debug_maps``. stats (recursion level 0): ori_loss,
-    distortion_loss, envmap_reg, brdf_reg, diffuse_reg, n_valid_samples
-    and, for microfacet shading, thin_scale (and thin_scale_retrace).
-    ``bg_col`` None takes the background from the envmap.
+    prediction_loss, distortion_loss, envmap_reg, brdf_reg, diffuse_reg,
+    n_valid_samples and, for microfacet shading, thin_scale (and
+    thin_scale_retrace). ``bg_col`` None takes the background from the
+    envmap. ``ndc_ray``: the rays are NDC rays (this pass only; the
+    shading model's retrace passes march world rays).
 
     Random draws (the march jitter, the resampling offsets, the shading
     model's) come from ``draws`` (``ops/draws.py``); a pass without any
@@ -147,9 +166,14 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
     if is_train:
         march = draws.uniform("jitter", (B, nmf.sampler.n_steps(stepmul)),
                               dev)
-    samp = nmf.sampler.sample(rays, is_train=is_train, jitter=march,
-                              max_samples_per_ray=K,
-                              override_near=override_near, stepmul=stepmul)
+    if ndc_ray:
+        samp = nmf.sampler.sample_ndc(rays, is_train=is_train, jitter=march,
+                                      max_samples_per_ray=K)
+    else:
+        samp = nmf.sampler.sample(rays, is_train=is_train, jitter=march,
+                                  max_samples_per_ray=K,
+                                  override_near=override_near,
+                                  stepmul=stepmul)
     xyz, z_vals, dists = samp["xyz"], samp["z_vals"], samp["dists"]
     valid = samp["valid"]
     if recur == 0:
@@ -184,10 +208,17 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
     valid_flat = valid.reshape(-1)
     xyz_normed = rf.normalize_coord(xyz_flat)
     viewdirs = rays[:, None, 3:6].expand(B, K, 3).reshape(-1, 3)
+    pred_normal, shade_normal = None, world_normal
+    if world_normal is not None and nmf.normal_module is not None:
+        pred_normal = nmf.normal_module(xyz_normed, app_features,
+                                        world_normal)
+        lam = nmf.predicted_normal_lambda
+        shade_normal = normalize(lam * pred_normal
+                                 + (1 - lam) * world_normal)
 
     retrace_thin = []
     rgb, debug = nmf.model.shade(
-        xyz_flat, xyz_normed, app_features, viewdirs, world_normal,
+        xyz_flat, xyz_normed, app_features, viewdirs, shade_normal,
         weight.reshape(-1), valid_flat, B,
         render_reflection=reflection_fn(nmf, is_train, recur, bg_cache,
                                         retrace_thin),
@@ -219,8 +250,13 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
         if world_normal is not None:
             ndotv = (-viewdirs.detach() * world_normal).sum(-1)
             ori = (aweight * torch.clamp(ndotv, max=0) ** 2).sum()
+        pred = zero
+        if pred_normal is not None:
+            pred = (aweight * 2 * (1 - (pred_normal * world_normal).sum(-1))
+                    ).sum()
         stats.update({
             "ori_loss": ori,
+            "prediction_loss": pred,
             "envmap_reg": (torch.clamp(
                 nmf.bg_module.mean_color().mean() - 0.05, min=0)
                 if nmf.bg_module is not None else zero),
@@ -235,7 +271,7 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
     images = {}
     if draw_debug:
         images.update(debug_maps(weight, valid, acc_map, z_vals, xyz_normed,
-                                 world_normal, rgb, debug, bg))
+                                 world_normal, pred_normal, rgb, debug, bg))
     if tonemap:
         rgb_map = srgb_tonemap(rgb_map)
     images["rgb_map"] = rgb_map + (1 - acc_map[..., None]) * bg

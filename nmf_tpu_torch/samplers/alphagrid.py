@@ -8,7 +8,8 @@ superstep S = 4 and K < N the two-level march runs: one lookup of an
 extra-dilated coarse mask per superstep of S steps, compaction to K // S
 supersteps, expansion, then the fine mask test. Training marches draw
 cumulative jittered steps (nmf_tpu's ``cumrand``, which every config
-uses).
+uses). ``sample_ndc`` marches NDC rays (LLFF scenes) in linear steps,
+culled by the box alone.
 
 The sampler is an ``nn.Module`` whose alpha volumes and boxes are buffers;
 schedule events update it in place.
@@ -28,6 +29,48 @@ from ..ops.masked import compact_topk, gather_rows
 
 SUPERSTEP = 4
 DENSE_CHUNK_POINTS = 1 << 21  # points per slab group of the mask rebuild
+
+
+def linspace_f32(start: float, stop: float, n: int, device):
+    """``jnp.linspace(start, stop, n)`` as nmf_tpu computes it in f32:
+    ``start * (1 - s) + stop * s`` with ``s = i / (n - 1)``, the last entry
+    ``stop`` itself."""
+    s = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
+    out = start * (1 - s) + stop * s
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
+                                      device=device)])
+
+
+def march_ndc(rays, near_far, N: int, is_train=False, jitter=None):
+    """The NDC march of rays (B, 6): N linear steps in [near, far], each
+    moved by ``jitter`` (B, N) U[0, 1) draws of a step in training ->
+    (pts (B, N, 3), z_vals (B, N), dists (B, N) scaled by |rays_d|)."""
+    near, far = near_far
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    B = rays.shape[0]
+    z_vals = linspace_f32(near, far, N, rays.device)[None].expand(B, N)
+    if is_train:
+        z_vals = z_vals + jitter * ((far - near) / N)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                       z_vals.new_zeros((B, 1))], dim=-1) * norm
+    return pts, z_vals, dists
+
+
+def compact_samples(pts, size, z_vals, dists, valid, K: int):
+    """(B, N) samples -> dict of xyz (pts + footprint ``size``), z_vals,
+    dists and valid: the first K valid samples a ray, by one packed
+    7-channel row gather, when 0 < K < N; all N otherwise."""
+    if not 0 < K < z_vals.shape[1]:
+        return {"xyz": torch.cat([pts, size], dim=-1), "z_vals": z_vals,
+                "dists": dists, "valid": valid}
+    packed = torch.cat([pts, size, z_vals[..., None], dists[..., None],
+                        valid[..., None].float()], dim=-1)
+    idx, keep = compact_topk(valid, K)
+    packed = gather_rows(packed, idx)
+    return {"xyz": packed[..., 0:4], "z_vals": packed[..., 4],
+            "dists": packed[..., 5], "valid": (packed[..., 6] > 0.5) & keep}
 
 
 class AlphaGridMask(nn.Module):
@@ -216,22 +259,21 @@ class AlphaGridSampler(nn.Module):
         valid = self._in_box(pts)
         if self.alpha_mask is not None and self.enable_alpha_mask:
             valid = valid & (self.alpha_mask.sample_alpha(pts) > 0)
-        size = z_vals[..., None]
         dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                            z_vals.new_zeros((B, 1))], dim=-1)
-        if 0 < K < N:
-            packed = torch.cat([pts, size, z_vals[..., None],
-                                dists[..., None], valid[..., None].float()],
-                               dim=-1)
-            idx, keep = compact_topk(valid, K)
-            packed = gather_rows(packed, idx)
-            xyz = packed[..., 0:4]
-            z_vals = packed[..., 4]
-            dists = packed[..., 5]
-            valid = (packed[..., 6] > 0.5) & keep
-        else:
-            xyz = torch.cat([pts, size], dim=-1)
-        return {"xyz": xyz, "z_vals": z_vals, "dists": dists, "valid": valid}
+        return compact_samples(pts, z_vals[..., None], z_vals, dists, valid,
+                               K)
+
+    def sample_ndc(self, rays, is_train=False, jitter=None,
+                   max_samples_per_ray: int = -1):
+        """NDC rays (B, 6): ``n_samples`` linear steps in [near, far],
+        jittered by ``jitter`` (B, n_samples) U[0, 1) draws of a step in
+        training; valid inside the box (the alpha mask is not read); dists
+        scaled by |rays_d|; footprint z (focal 1)."""
+        pts, z_vals, dists = march_ndc(rays, self.near_far, self.n_samples,
+                                       is_train, jitter)
+        return compact_samples(pts, z_vals[..., None], z_vals, dists,
+                               self._in_box(pts), max_samples_per_ray)
 
     def _in_box(self, p):
         return ((p >= self.aabb[0]) & (p <= self.aabb[1])).all(dim=-1)

@@ -9,7 +9,12 @@ shipped widths with chip_smoke.py's schedule and profiles ``--steps`` steps at t
 default): alpha-mask rebuilds at 100 and 200, upsample to 300^3 at 150;
 windows after the first rebuild (128^3 grid) and after the upsample and
 the second rebuild (300^3). model=microfacet_tensorf2: upsample at 300, no
-mask rebuild; windows at 150 (128^3) and 450 (300^3). For each window it
+mask rebuild; windows at 150 (128^3) and 450 (300^3). model=microfacet_
+tensorf (the occupancy grid): chip_smoke.py's occgrid cut, an upsample at
+300, then a shrink tick at 400 at the occupancy threshold 0.05; windows at
+150 (128^3, the whole box) and 450 (300^3 voxels on the box the shrink
+left: a few voxels off a face in some runs, the whole box in others). For
+each window it
 prints the step time (CUDA events, profiler off), the device-busy share of
 the profiled window, and the kernels ranked by device time per step,
 grouped into classes (composite K1 and K2 and binsum K3 apart). Needs a
@@ -39,6 +44,11 @@ SCHEDULES = {
                              "field.upsamp_list=[300]",
                              "model.arch.sampler.update_list=[]"],
                             (150, 450)),
+    "microfacet_tensorf": (["model.params.n_iters=600",
+                            "field.upsamp_list=[300]",
+                            "model.arch.sampler.shrink_iters=[400]",
+                            "model.arch.sampler.occ_thre=0.05"],
+                           (150, 450)),
 }
 
 # kernel-name substrings -> class, first match wins

@@ -9,15 +9,18 @@ Host loop: the microfacet model's bias calibration against the envmap
 brightness, batching (with the adaptive batch controller when the config
 sets ``target_num_samples``), the train step, progress lines (psnr, loss,
 rays/s, the bounce-ray thinning factors) also written to the run folder's
-``metrics.jsonl``, schedule events (voxel upsample, alpha-mask rebuild)
-followed by a fresh optimizer, the switch to ``L1_weight_rest`` and a
+``metrics.jsonl``, schedule events (voxel upsample, alpha-mask rebuild,
+occupancy-grid shrink; the occupancy grid's density sweep every
+``update_freq`` iterations keeps the optimizer) followed by a fresh
+optimizer, the switch to ``L1_weight_rest`` and a
 batch reset, ``vis_every`` evals, checkpoints (``save_every`` writes
 ``{expname}_latest.th``, the end of the run ``{expname}.th``), and the
 final test evaluation at the ``eval_tier`` budgets. ``stop_iter`` pauses
 the run with a ``_latest.th``; ``resume=True`` continues from it, and
 ``ckpt=`` starts from a checkpoint. ``render_only=True ckpt=...``
-evaluates a checkpoint instead of training. Runs on ``cuda`` unless the
-config says ``device=cpu``.
+evaluates a checkpoint instead of training. An LLFF scene whose yaml
+sets ``ndc_ray`` trains and evaluates on NDC rays. Runs on ``cuda``
+unless the config says ``device=cpu``.
 
 Random streams: the march jitter and the shading model's draws come from
 one ``torch.Generator`` on the device, the ray batches and the background
@@ -88,6 +91,7 @@ def make_loss_weights(params, l1_rest=False, tv_mult=1.0):
         tv_weight_density=params.get("TV_weight_density", 0.0) * tv_mult,
         tv_weight_app=params.get("TV_weight_app", 0.0) * tv_mult,
         ori_lambda=params.get("ori_lambda", 0.0),
+        pred_lambda=params.get("pred_lambda", 0.0),
         envmap_lambda=params.get("envmap_lambda", 0.0),
         diffuse_lambda=params.get("diffuse_lambda", 0.0),
         brdf_lambda=params.get("brdf_lambda", 0.0))
@@ -146,8 +150,14 @@ def stream_seed(seed: int, start_iter: int) -> int:
 
 
 def schedule_events(nmf):
-    """The iterations at which the field or the sampler changes."""
-    return set(nmf.rf.upsamp_list) | set(nmf.sampler.update_list)
+    """The iterations at which the field or the sampler changes and the
+    optimizer is rebuilt: the upsamples, the alpha-mask rebuilds and the
+    occupancy-grid shrinks. The occupancy grid's density sweep every
+    ``update_freq`` iterations (in ``NMF.check_schedule``) is no event:
+    it keeps the optimizer."""
+    s = nmf.sampler
+    return (set(nmf.rf.upsamp_list) | set(getattr(s, "update_list", ()))
+            | set(getattr(s, "shrink_iters", ())))
 
 
 def _final_n_vis(cfg):
@@ -220,6 +230,7 @@ def reconstruction(cfg, log=print):
             * float(cfg["dataset"].get("aabb_scale", 1)))
     nmf = build_nmf(cfg["model"]["arch"], aabb, near_far, seed=seed,
                     device=device)
+    ndc_ray = bool(cfg["dataset"].get("ndc_ray", False))
 
     start_iter, extra = 0, {}
     latest_path = logfolder / f"{expname}_latest.th"
@@ -283,7 +294,8 @@ def reconstruction(cfg, log=print):
                   if rgba.shape[-1] == 4 else rgba)
         metrics = trainer.train_step(
             nmf, opt, rays, rgb_gt, tuple(float(c) for c in bg_col),
-            make_loss_weights(params, l1_rest, tv_mult), draws=draws)
+            make_loss_weights(params, l1_rest, tv_mult), draws=draws,
+            ndc_ray=ndc_ray)
         tv_mult *= tv_decay
         rays_done += rays.shape[0]
         batch.after_step(it, metrics["n_valid_samples"])
@@ -311,7 +323,8 @@ def reconstruction(cfg, log=print):
             l1_rest = True
             batch.reset()
             log(f"iter {it}: schedule event -> optimizer reinit; "
-                f"grid={nmf.rf.live_grid_size}")
+                f"grid={nmf.rf.live_grid_size}, "
+                f"aabb={nmf.rf.aabb.detach().cpu().numpy().round(4).tolist()}")
         if (vis_every > 0 and cfg.get("N_vis", 0) != 0
                 and (it + 1) % vis_every == 0):
             res = eval_lib.evaluate(

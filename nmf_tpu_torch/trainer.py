@@ -95,6 +95,8 @@ def group_lrs(nmf: NMF):
     brdf = getattr(nmf.model, "brdf", None)
     if brdf is not None:
         lrs["brdf"] = brdf.lr * s
+    if nmf.normal_module is not None:
+        lrs["normal"] = nmf.normal_module.lr * s
     bg = nmf.bg_module
     if bg is not None:
         lrs.update(bg=bg.lr * s, bg_mipbias=bg.mipbias_lr * s,
@@ -104,12 +106,15 @@ def group_lrs(nmf: NMF):
 
 def differentiated_tensors(nmf: NMF):
     """(path, tensor, label) of every tensor the train step differentiates:
-    the parameters and the field's and the sampler's boxes (frozen; the
-    sampler's box takes a gradient through the retrace pass)."""
+    the parameters, the field's and the sampler's boxes and the normal
+    blend (frozen; the sampler's box takes a gradient through the retrace
+    pass, the blend through a normal module)."""
     out = [(name.replace(".", "/"), p, label_for_path(name.replace(".", "/")))
            for name, p in nmf.named_parameters()]
     out.append(("rf/aabb", nmf.rf.aabb, "frozen"))
     out.append(("sampler/aabb", nmf.sampler.aabb, "frozen"))
+    out.append(("predicted_normal_lambda", nmf.predicted_normal_lambda,
+                "frozen"))
     return out
 
 
@@ -175,15 +180,17 @@ class Optimizer:
 
 
 class LossWeights(NamedTuple):
-    """Per-iteration loss weights (nmf_tpu's LossWeights). The prediction,
-    normal-error and visibility terms are exact zeros without a normal or
-    visibility module (not in the ported slices) and are not computed."""
+    """Per-iteration loss weights (nmf_tpu's LossWeights). The
+    normal-error and visibility terms are exact zeros without ground-truth
+    normals or a visibility module (not in the ported slices) and are not
+    computed."""
     distortion_lambda: float = 0.0
     l1_weight: float = 8e-5
     ortho_weight: float = 0.0
     tv_weight_density: float = 0.0
     tv_weight_app: float = 0.0
     ori_lambda: float = 0.0
+    pred_lambda: float = 0.0
     envmap_lambda: float = 0.0
     diffuse_lambda: float = 0.0
     brdf_lambda: float = 0.0
@@ -191,18 +198,20 @@ class LossWeights(NamedTuple):
 
 # loss weight -> render stat it scales
 _STAT_TERMS = (("distortion_lambda", "distortion_loss"),
-               ("ori_lambda", "ori_loss"), ("envmap_lambda", "envmap_reg"),
+               ("ori_lambda", "ori_loss"),
+               ("pred_lambda", "prediction_loss"),
+               ("envmap_lambda", "envmap_reg"),
                ("diffuse_lambda", "diffuse_reg"), ("brdf_lambda", "brdf_reg"))
 
 
 def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
-                 draws):
+                 draws, ndc_ray=False):
     """Photometric + regularizer loss. Returns (loss, metrics). The envmap
-    cache is built once here for the whole step."""
+    cache is built once here for the whole step; ``ndc_ray``: the rays are
+    NDC rays."""
     bg_cache = nmf.bg_module.prepare() if nmf.bg_module is not None else None
     ims, stats = render(nmf, rays, is_train=True, bg_col=bg_col,
-                        draws=draws,
-                        bg_cache=bg_cache)
+                        draws=draws, bg_cache=bg_cache, ndc_ray=ndc_ray)
     rgb_map = ims["rgb_map"]
     B = rays.shape[0]
     sq = (torch.clamp(rgb_map, 0, 1) - torch.clamp(rgb_gt, 0, 1)) ** 2
@@ -227,12 +236,12 @@ def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
 
 
 def train_step(nmf: NMF, opt: Optimizer, rays, rgb_gt, bg_col,
-               weights: LossWeights, draws):
+               weights: LossWeights, draws, ndc_ray=False):
     """One step: loss, backward, optimizer update. A non-finite loss skips
     the update (parameters and optimizer state stay as they were)."""
     opt.zero_grad()
     loss, metrics = compute_loss(nmf, rays, rgb_gt, weights, bg_col,
-                                 draws=draws)
+                                 draws=draws, ndc_ray=ndc_ray)
     loss.backward()
     if bool(torch.isfinite(loss.detach())):
         opt.step()

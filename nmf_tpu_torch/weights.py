@@ -6,8 +6,9 @@
 every entry into the port's module of the same path: an attribute per
 ``.name``, a list entry per ``[i]``. MLP layers are ``{"w": (in, out),
 "b"}`` dicts in nmf_tpu and ``nn.Linear``s here: ``['w']`` is the
-transposed ``weight``, ``['b']`` the ``bias``. A key whose path the port
-lacks raises, and so does a port tensor that no key filled.
+transposed ``weight``, ``['b']`` the ``bias`` (a layer without a bias,
+as the normal network's last, has no ``['b']`` key). A key whose path the
+port lacks raises, and so does a port tensor that no key filled.
 
 ``to_jax_state_dict(nmf)`` is the inverse: the same keys, shapes and
 dtypes as ``nmf_tpu.ckpt.state_dict`` of the same model, as numpy arrays.
@@ -82,29 +83,49 @@ def _port_tensors(nmf):
             list(nmf.named_parameters()) + list(nmf.named_buffers())}
 
 
-@torch.no_grad()
-def from_jax_state_dict(nmf, sd):
-    """Load ``sd`` into ``nmf`` in place and return it. Shapes follow the
-    state dict; the field's grid size and the sampler's geometry are
-    re-derived when the planes change shape."""
-    unfilled = _port_tensors(nmf)
-    for key, value in sd.items():
+def _copy_entries(nmf, sd, keys, filled):
+    """Copy the entries ``keys`` of ``sd``; the names of the port tensors
+    filled go into ``filled``."""
+    names = _port_tensors(nmf)
+    for key in keys:
         old, transpose = port_tensor(nmf, key)
-        arr = np.asarray(value)
+        arr = np.asarray(sd[key])
         new = torch.tensor(arr.T if transpose else arr, dtype=old.dtype,
                            device=old.device)
-        unfilled.pop(id(old), None)
+        filled.add(names.get(id(old)))
         if old.shape == new.shape:
             old.copy_(new)
         else:
             old.data = new
+
+
+@torch.no_grad()
+def from_jax_state_dict(nmf, sd):
+    """Load ``sd`` into ``nmf`` in place and return it. Shapes follow the
+    state dict. The field's entries come first: when its planes change
+    shape (an upsampled or shrunk field's), the grid size is read from
+    them and the sampler's geometry re-derived before the other entries,
+    the sampler's own arrays (alpha mask, occupancy grid, box) among them,
+    are copied."""
+    filled = set()
+    rf = nmf.rf
+
+    def plane_shapes():
+        return [tuple(p.shape) for p in rf.density_rf.planes]
+
+    # a freshly built field's planes are square at its first axis'
+    # resolution, whatever its grid size; planes of another shape are an
+    # upsampled or shrunk field's, whose sizes they give
+    before = plane_shapes()
+    _copy_entries(nmf, sd, [k for k in sd if k.startswith(".rf.")], filled)
+    if plane_shapes() != before:
+        p0, p1 = rf.density_rf.planes[0], rf.density_rf.planes[1]
+        rf.grid_size = (p0.shape[2], p0.shape[1], p1.shape[1])
+        nmf.sampler.update(rf, init=True)
+    _copy_entries(nmf, sd, [k for k in sd if not k.startswith(".rf.")],
+                  filled)
+    unfilled = set(_port_tensors(nmf).values()) - filled
     if unfilled:
         raise KeyError("port tensors not filled by the state dict: "
-                       f"{sorted(unfilled.values())}")
-    rf = nmf.rf
-    p0, p1 = rf.density_rf.planes[0], rf.density_rf.planes[1]
-    grid = (p0.shape[2], p0.shape[1], p1.shape[1])
-    if grid != tuple(rf.grid_size):
-        rf.grid_size = grid
-        nmf.sampler.update(rf, init=True)
+                       f"{sorted(unfilled)}")
     return nmf

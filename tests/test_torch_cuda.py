@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 from nmf_tpu_torch.ops import grid_sample as tgs  # noqa: E402
 from nmf_tpu_torch.ops.kernels import binsum as tbin  # noqa: E402
 from nmf_tpu_torch.ops.kernels import composite as tcomp  # noqa: E402
-from torch_inputs import (FLAGSHIP, binsum_case,  # noqa: E402
+from torch_inputs import (FLAGSHIP, OCCGRID, binsum_case,  # noqa: E402
                           composite_inputs, cotangents)
 
 
@@ -165,15 +165,101 @@ def test_tiny_fixed_shape_flagship_step_on_card_matches_cpu(cuda):
     assert not any(g[:, 16:].any() or g[:, :, 16:].any() for g in grads)
 
 
-def _flagship_step_card_vs_cpu(cuda, extra):
-    """Runs the comparison; returns the card's density-plane gradients."""
+@pytest.mark.cuda
+@pytest.mark.parametrize("shrunk", [False, True], ids=["box", "shrunk"])
+def test_tiny_microfacet_tensorf_step_on_card_matches_cpu(cuda, shrunk):
+    """The same for the tiny occupancy-grid NMF (16^3 occupancy grid swept
+    from the field on each device, the normal MLP, pred_lambda 0.5): the
+    loss, the image and every gradient, the normal MLP's among them; and
+    with the field first cropped by ``shrink`` to a box-shaped grid and
+    the sampler re-derived, as a shrink_iters tick does."""
+    grads = _flagship_step_card_vs_cpu(
+        cuda, [], base=OCCGRID, weights={"pred_lambda": 0.5},
+        shrink=(np.array([[-0.9, -0.7, -1.1], [0.5, 1.0, 0.6]], np.float32)
+                if shrunk else None))
+    if shrunk:
+        assert tuple(grads[0].shape[1:]) != (16, 16)
+
+
+def _march_rays(march, n=64, seed=5):
+    """Rays for a march that keeps its samples off the box's faces:
+    camera-like rays whose jittered first sample lies inside (train),
+    rays through the box's middle whose first sample, at near = 2.5, lies
+    inside (eval), NDC-like rays from just inside z = -1 (ndc)."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if march.startswith("ndc"):
+        o = np.concatenate([rng.uniform(-0.8, 0.8, (n, 2)),
+                            np.full((n, 1), -0.98)], -1)
+        d = np.concatenate([rng.uniform(-0.4, 0.4, (n, 2)),
+                            np.full((n, 1), 1.9)], -1)
+    else:
+        o = rng.uniform(-0.6, 0.6, (n, 3)) - (4.0 if march == "train"
+                                              else 2.6) * d
+    return torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("march", ["train", "eval", "ndc_train", "ndc_eval",
+                                   "alphagrid_ndc_train"])
+def test_occgrid_march_on_card_matches_cpu(cuda, march):
+    """OccGridSampler.sample and sample_ndc of the tiny occupancy-grid NMF
+    over a block occupancy grid (and the flagship's
+    AlphaGridSampler.sample_ndc), on the card and on the CPU with the same
+    jitter: the validity flags equal, positions, depths and spacings
+    within 1e-5."""
+    from nmf_tpu_torch import config
+    from nmf_tpu_torch.builders import build_nmf
+
+    alphagrid = march.startswith("alphagrid")
+    cfg = config.compose(FLAGSHIP if alphagrid else OCCGRID)
+    grid = np.random.default_rng(4).uniform(0, 1e-3, (16,) * 3)
+    grid[3:9, 4:11, 5:8] = 1.0
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        nmf = build_nmf(cfg["model"]["arch"], np.array(
+            [[-1.5] * 3, [1.5] * 3], np.float32), (2.5, 5.5), seed=0,
+            device=dev)
+        s = nmf.sampler
+        if not alphagrid:
+            s.density_grid = torch.tensor(grid, dtype=torch.float32,
+                                          device=dev)
+        rays = _march_rays(march.split("_", 1)[-1] if alphagrid
+                           else march).to(dev)
+        if alphagrid:  # some rays leave the box through its sides
+            rays[:, 3:5] *= 4
+        train = march.endswith("train")
+        jitter = (torch.rand((rays.shape[0], s.n_samples),
+                             generator=torch.Generator().manual_seed(3)
+                             ).to(dev) if train else None)
+        if "ndc" in march:
+            s.near_far = (0.0, 1.0)
+            # the alpha grid's test is the box alone: all steps, uncompacted
+            out = s.sample_ndc(rays, is_train=train, jitter=jitter,
+                               max_samples_per_ray=-1 if alphagrid else 16)
+        else:
+            out = s.sample(rays, is_train=train, jitter=jitter,
+                           max_samples_per_ray=16)
+        outs.append({k: v.cpu() for k, v in out.items()})
+    card, cpu = outs
+    assert torch.equal(card["valid"], cpu["valid"])
+    assert 0 < int(cpu["valid"].sum()) < cpu["valid"].numel()
+    for k in ("xyz", "z_vals", "dists"):
+        torch.testing.assert_close(card[k], cpu[k], rtol=1e-5, atol=1e-5)
+
+
+def _flagship_step_card_vs_cpu(cuda, extra, base=FLAGSHIP, weights=None,
+                               shrink=None):
+    """Runs the comparison (the field cropped to the box ``shrink`` first,
+    if given); returns the card's density-plane gradients."""
     from nmf_tpu_torch import config, trainer
     from nmf_tpu_torch.builders import build_nmf
     from nmf_tpu_torch.data import load_dataset
     from nmf_tpu_torch.ops.draws import Draws
     from nmf_tpu_torch.render import render
 
-    cfg = config.compose([*FLAGSHIP, "dataset.image_size=16",
+    cfg = config.compose([*base, "dataset.image_size=16",
                           "dataset.n_views=4", *extra])
     ds = load_dataset(cfg["dataset"], None, "train")
     runs = []
@@ -183,11 +269,15 @@ def _flagship_step_card_vs_cpu(cuda, extra):
                         device=dev)
         with torch.no_grad():
             nmf.bg_module.mipbias.fill_(12.0)
+        if shrink is not None:
+            assert nmf.rf.shrink(shrink)
+            nmf.sampler.update(nmf.rf, init=True)
         trainer.Optimizer(nmf, trainer.OptimConfig())
         rays = torch.from_numpy(ds["all_rays"][:64]).to(dev)
         loss, _ = trainer.compute_loss(
             nmf, rays, torch.from_numpy(ds["all_rgbs"][:64]).to(dev),
-            trainer.LossWeights(ori_lambda=0.1), (1.0, 1.0, 1.0),
+            trainer.LossWeights(ori_lambda=0.1, **(weights or {})),
+            (1.0, 1.0, 1.0),
             draws=Draws(torch.Generator().manual_seed(1)))
         loss.backward()
         with torch.no_grad():

@@ -298,7 +298,7 @@ def test_loader_matches(tmp_path, case):
         assert ours["poses"].shape[0] == 2
 
 
-@pytest.mark.parametrize("name", ["llff", "nsvf", "tankstemple"])
+@pytest.mark.parametrize("name", ["nsvf", "tankstemple"])
 def test_unported_loaders_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tload({"dataset_name": name, "scenedir": "x"}, "/nonexistent")

@@ -255,7 +255,7 @@ def test_load_dataset_matches():
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
-    # blender loads since the data slice (tests/test_torch_data.py); llff
-    # waits for NDC sampling
+    # blender and llff load since their slices (tests/test_torch_data.py,
+    # tests/test_torch_llff.py); nsvf waits for a shipped config
     with pytest.raises(NotImplementedError):
-        tload({"dataset_name": "llff", "scenedir": "fern"}, None)
+        tload({"dataset_name": "nsvf", "scenedir": "x"}, None)

@@ -272,6 +272,6 @@ def test_fixed_shape_sampler_scales_its_step_and_pins_its_mask():
     assert tuple(s.alpha_mask.alpha_volume.shape) == (30, 30, 30)
     s.update(fixed.rf)
     assert tuple(s.alpha_mask.alpha_volume.shape) == (30, 30, 30)
-    # nmf_tpu refuses rf.shrink under fixed_shape; the port has no shrink
-    # until the occupancy-grid sampler that calls it is ported
-    assert not hasattr(fixed.rf, "shrink")
+    # nmf_tpu refuses rf.shrink under fixed_shape, and so does the port
+    with pytest.raises(NotImplementedError, match="fixed_shape"):
+        fixed.rf.shrink(fixed.rf.aabb.detach().cpu().numpy() * 0.5)

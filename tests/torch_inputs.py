@@ -15,6 +15,11 @@ FLAGSHIP = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
             "model.arch.model.max_retrace_rays=[32]",
             "model.arch.bg_module.bg_resolution=32"]
 
+# the tiny occupancy-grid NMF (model=microfacet_tensorf): the flagship's
+# tiny widths and a 16^3 occupancy grid
+OCCGRID = ["model=microfacet_tensorf", *FLAGSHIP[1:],
+           "model.arch.sampler.grid_size=16"]
+
 
 def composite_inputs(B=37, K=16, seed=0, opaque=False):
     rng = np.random.default_rng(seed)

@@ -14,7 +14,8 @@ from torch_inputs import FLAGSHIP
 AABB = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]], np.float32)
 NEAR_FAR = (2.5, 5.5)
 
-def build_pair(gather="f32", extra=(), base=None):
+def build_pair(gather="f32", extra=(), base=None, aabb=AABB,
+               near_far=NEAR_FAR):
     """A tiny model built by nmf_tpu, and the port's copy of it (by
     default model=tensorf)."""
     ov = base if base is not None else [
@@ -23,20 +24,42 @@ def build_pair(gather="f32", extra=(), base=None):
         f"field.gather_dtype={gather}",
         "model.arch.model.diffuse_module.featureC=16"]
     cfg = jconfig.compose([*ov, *extra])
-    jn = jbuild(jax.random.PRNGKey(0), cfg["model"]["arch"], AABB, NEAR_FAR)
-    tn = tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+    jn = jbuild(jax.random.PRNGKey(0), cfg["model"]["arch"], aabb, near_far)
+    tn = tbuild(cfg["model"]["arch"], aabb, near_far, device="cpu")
     weights.from_jax_state_dict(tn, jckpt.state_dict(jn))
     return jn, tn, cfg
 
 
-def build_flagship_pair(extra=()):
-    return build_pair(extra=extra, base=FLAGSHIP)
+def build_flagship_pair(extra=(), **kw):
+    return build_pair(extra=extra, base=FLAGSHIP, **kw)
 
 
-def port_copy(jn, cfg):
+def port_copy(jn, cfg, aabb=AABB, near_far=NEAR_FAR):
     """A fresh port of the nmf_tpu model ``jn`` (built from ``cfg``)."""
-    tn = tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+    tn = tbuild(cfg["model"]["arch"], aabb, near_far, device="cpu")
     return weights.from_jax_state_dict(tn, jckpt.state_dict(jn))
+
+
+def close(a, b, rtol, what="", scale=None):
+    """|a - b| <= rtol * (|b| + max|b|)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    s = np.abs(b).max() if scale is None else scale
+    np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * s + 1e-12,
+                               err_msg=what)
+
+
+def grads_match(tn, jgrads, rtol, loose=()):
+    """Every nmf_tpu gradient against the port's (a tensor the port does
+    not differentiate must have an exactly zero one there); ``loose``:
+    (key part, rtol) of tensors held to their own tolerance."""
+    for key, g in jckpt.state_dict(jgrads).items():
+        t, transpose = weights.port_tensor(tn, key)
+        if t.grad is None:
+            assert not np.any(g), key
+            continue
+        tg = t.grad.numpy()
+        tol = next((tl for k, tl in loose if k in key), rtol)
+        close(tg.T if transpose else tg, g, tol, key)
 
 
 def _u(key, shape):
@@ -50,7 +73,8 @@ def _n(key, shape):
 def render_draws(key, jn, B, is_train, recur=0, prefix=""):
     """The draws of nmf_tpu's ``render(key)`` of B rays at recursion
     ``recur``, by the port's names: render.py splits the key four ways
-    (march jitter, shade, -, proposal resampling)."""
+    (march jitter, shade, -, proposal resampling); a shading model without
+    bounce rays draws nothing."""
     keys = jax.random.split(key, 4)
     d = {}
     K = jn.max_samples_per_ray if recur == 0 else jn.recur_samples_per_ray
@@ -63,8 +87,9 @@ def render_draws(key, jn, B, is_train, recur=0, prefix=""):
         if is_train:
             d[prefix + "resample"] = _u(keys[2], (B, kf + 1))
         K = kf
-    d.update(shade_draws(keys[1], jn, B * K, is_train, recur,
-                         prefix + "shade/"))
+    if hasattr(jn.model, "brdf_ray_budget"):
+        d.update(shade_draws(keys[1], jn, B * K, is_train, recur,
+                             prefix + "shade/"))
     return d
 
 
