@@ -60,7 +60,8 @@
    (rays within 1e-5 of the generator's, RGBA within 1/255, the EXR bit-
    equal to the panorama, the loader's seconds); then the trainer on
    dataset=lego with only datadir, near_far and stack_norms overridden and
-   the studio knobs, 1000 iterations without a pause, the final eval's
+   the studio knobs, resumed from the studio path's pause checkpoint at
+   500 and trained to 1000 on the same random streams, the final eval's
    envmap metrics against the EXR and pano.exr written. Its test PSNR must
    clear 17 dB and land within 0.5 dB of the studio path's.
 7. The lego-size load: 100 train views of 800^2 RGBA (the sphere
@@ -81,8 +82,25 @@
 9. The LLFF path: a forward-facing sphere scene in fern's layout and size
    (20 views of 4032 x 3024 PNG, poses_bounds.npy) written and checked on
    the host as the loader reads it (4x area downsample, NDC rays), then
-   dataset=llff_fern with the default model for 600 iterations.
-   Every K1 / K2 / K3 launch of paths 8 and 9 must be at a size held
+   dataset=llff_fern with the default model for 600 iterations. Its bar
+   is the test PSNR of the test views rendered with NDC rays; the final
+   eval's (world rays, as nmf_tpu's) is printed beside it.
+10. The Ref-NeRF studio path: model=refnerf with the refnerf 8k arm's
+   field and model (the studio knobs) on the studio path's scene and cut,
+   1000 iterations without a pause; PSNR, SSIM, norm_err and tint_psnr
+   beside the flagship studio path's.
+11. The hash-grid path: model=refnerf_tcnn field=hashgrid at the shipped
+   widths (16 levels of 2^19 x 2 tables, the 128^3 occupancy grid at its
+   shipped threshold, 3,542 march steps a ray) on synthetic_sphere, 600
+   iterations, geonorm_interp_iters 400: the normal blend printed at
+   iterations 0, 100, 300, 500 and 599 (it must read 0 and 1), the
+   occupied share after every sweep (not held to anything), the card's
+   peak allocated memory and K3's launches on the hash tables.
+12. The dual path: model=microfacet_dualref on synthetic_sphere, 600
+   iterations, the switch to the microfacet model at 300: it must be the
+   run's first schedule event, with an optimizer rebuild, Ref-NeRF must
+   shade retrace passes and K1 must launch at the retrace shape 1024 x 96.
+   Every K1 / K2 / K3 launch of paths 8 to 12 must be at a size held
    before it or held after the path on the ids it launched with; each
    must clear 17 dB.
 
@@ -1073,14 +1091,17 @@ def studio_path(config):
 
 # The Blender path: the studio path's scene written in nerf_synthetic layout
 # under the folder dataset=lego names, trained through dataset=lego with
-# the studio knobs and no pause. Its only dataset overrides: datadir, the
-# studio cameras' near_far and the normal / tint maps. Only 8-bit
-# quantization separates its data from the studio path's, so its test PSNR
-# must land within BLENDER_DB of the studio path's.
+# the studio knobs. Cut: it resumes from the studio path's pause checkpoint
+# (iteration 500, copied as its own _latest.th) and trains the second half,
+# as the studio path's resumed run does, on the same random streams. Its
+# only dataset overrides: datadir, the studio cameras' near_far and the
+# normal / tint maps. Only 8-bit quantization separates its data from the
+# studio path's, so its test PSNR must land within BLENDER_DB of the studio
+# path's.
 DATA_DIR = LOG_DIR / "data"
 BLENDER = ["dataset=lego", f"datadir={DATA_DIR}",
            "dataset.near_far=[1.4,5.0]", "dataset.stack_norms=true",
-           *STUDIO_KNOBS, "expname=blender"]
+           *STUDIO_KNOBS, "expname=blender", "resume=True"]
 BLENDER_DB = 0.5
 # the lego-size load: nerf_synthetic's 100 train views of 800^2 (RGBA, the
 # sphere generator's, alpha from its hit mask) and a few test views,
@@ -1151,13 +1172,29 @@ def write_blender_scene(config):
 
 def blender_path(config):
     """The Blender path's run for ``drive_main_path``: the trainer on
-    dataset=lego, its final eval against the panorama read from the EXR.
-    Fails unless it wrote pano.exr."""
+    dataset=lego, resumed from the studio path's pause checkpoint, its
+    final eval against the panorama read from the EXR. Fails unless it
+    resumed at the pause and wrote pano.exr."""
     from nmf_tpu_torch import train
 
     def run(log):
-        _, res = train.reconstruction(config.compose(BLENDER), log=log)
-        pano = LOG_DIR / "lego_blender" / "imgs_test_all" / "pano.exr"
+        folder = LOG_DIR / "lego_blender"
+        folder.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(LOG_DIR / "synthetic_studio_studio"
+                        / "synthetic_studio_studio_latest.th",
+                        folder / "lego_blender_latest.th")
+        lines = []
+
+        def logged(s):
+            lines.append(s)
+            log(s)
+
+        _, res = train.reconstruction(config.compose(BLENDER), log=logged)
+        if not any(ln.startswith("resume:") and
+                   f"at iter {STUDIO_ITERS // 2}" in ln for ln in lines):
+            fail("blender: the run did not resume from the studio path's "
+                 "pause checkpoint")
+        pano = folder / "imgs_test_all" / "pano.exr"
         if not pano.exists():
             fail(f"blender: the final eval wrote no {pano}")
         note = (f", norm_err {res['norm_err']:.2f} deg, tint_psnr "
@@ -1503,27 +1540,213 @@ def check_llff_split(scenedir, ds, split):
         fail(f"llff {split}: an NDC origin lies at |z| = {z}")
 
 
+def ndc_test_psnr(torch, nmf, cfg):
+    """Mean PSNR of the test views rendered as training marches them (NDC
+    rays, ``render_image(ndc_ray=True)``); ``evaluate``, as nmf_tpu's,
+    marches them as world rays."""
+    import numpy as np
+
+    from nmf_tpu_torch import eval as eval_lib
+    from nmf_tpu_torch import utils
+    from nmf_tpu_torch.data import load_dataset
+
+    ds = load_dataset(cfg["dataset"], cfg["datadir"], split="test")
+    W, H = ds["img_wh"]
+    n_px = H * W
+    psnrs = []
+    for i in range(ds["all_rays"].shape[0] // n_px):
+        px = slice(i * n_px, (i + 1) * n_px)
+        maps = eval_lib.render_image(
+            nmf, ds["all_rays"][px], (H, W), chunk=nmf.eval_batch_size,
+            draws=eval_lib.Draws(torch.Generator(device="cuda").manual_seed(
+                i)), ndc_ray=True)
+        psnrs.append(utils.rgb_psnr(np.clip(maps["rgb_map"], 0, 1),
+                                    ds["all_rgbs"][px].reshape(H, W, 3)))
+    return float(np.mean(psnrs))
+
+
 def llff_path(torch, config):
     """Write the LLFF scene (timed), then return the run for
     ``drive_main_path``: the trainer on dataset=llff_fern, each split
     checked on the host as it is loaded, before training. Prints each
-    load's seconds and traced host peak and the store's bytes."""
+    load's seconds and traced host peak and the store's bytes. The test
+    PSNR the path is held to is that of the test views rendered with NDC
+    rays; the final eval's (world rays, as nmf_tpu's) is printed beside
+    it."""
     from nmf_tpu_torch import train
 
     scenedir = write_llff_scene(config)
 
     def run(log):
         torch.cuda.reset_peak_memory_stats()
+        cfg = config.compose(LLFF)
         with measured_loads(train, [], check=lambda ds, split:
                             check_llff_split(scenedir, ds, split)) as loads:
-            _, res = train.reconstruction(config.compose(LLFF), log=log)
+            nmf, res = train.reconstruction(cfg, log=log)
         for split, seconds, peak, rays, store in loads:
             print(f"llff load ({split}): {rays} rays in {seconds:.2f} s, "
                   f"traced host peak {peak} B ({peak / 2**30:.2f} GiB), "
                   f"rays + RGB {store} B ({store / 2**30:.2f} GiB)")
         train_store = next(ld[4] for ld in loads if ld[0] == "train")
-        note = (f"; device store {train_store} B, card peak allocated "
+        res = dict(res, evaluate_psnr=res["psnr"],
+                   psnr=ndc_test_psnr(torch, nmf, cfg))
+        note = (f"; test PSNR of the NDC render {res['psnr']:.2f} dB, "
+                f"evaluate's (world rays, as nmf_tpu) "
+                f"{res['evaluate_psnr']:.2f} dB; device store {train_store}"
+                f" B, card peak allocated "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return res, res["train_seconds"], note
+
+    return run
+
+
+# The Ref-NeRF studio path: model=refnerf with the field and model of the
+# refnerf 8k arm (runs/synthetic_studio_refnerf_studio8k/config.yaml: the
+# studio knobs) on the studio path's scene and cut: 24 views of 128^2,
+# 1000 iterations, the arm's upsamples and mask rebuilds scaled by 1/8,
+# no pause.
+REFNERF_STUDIO = ["dataset=synthetic_studio", "dataset.hemisphere=true",
+                  "dataset.n_views=24", "dataset.image_size=128",
+                  "model=refnerf", *STUDIO_KNOBS[1:],
+                  "expname=refnerf_studio"]
+# The hash-grid path: model=refnerf_tcnn field=hashgrid at their shipped
+# widths (16 levels of 2^19 x 2 tables, the 128^3 occupancy grid at its
+# shipped threshold 0.01, multiplier 2: 3,540 march steps a ray) on
+# synthetic_sphere, 600 iterations; geonorm_interp_iters cut from 1000 to
+# 400, so the normal blend is 0 from the first tick to 100 and 1 from 500.
+REFNERF_TCNN_ITERS = 600
+REFNERF_TCNN = ["model=refnerf_tcnn", "field=hashgrid",
+                "dataset=synthetic_sphere",
+                f"model.params.n_iters={REFNERF_TCNN_ITERS}",
+                "model.arch.geonorm_interp_iters=400", "device=cuda",
+                f"basedir={LOG_DIR}", "expname=refnerf_tcnn",
+                "progress_refresh_rate=100"]
+BLEND_AT = (0, 100, 300, 500, REFNERF_TCNN_ITERS - 1)
+# The dual path: model=microfacet_dualref (Ref-NeRF warmup, then the
+# microfacet model with Ref-NeRF shading its retrace pass) at its shipped
+# widths on synthetic_sphere, 600 iterations, warmup_iters cut from 5000
+# to 300.
+DUALREF_ITERS, DUALREF_SWITCH = 600, 300
+DUALREF = ["model=microfacet_dualref", "dataset=synthetic_sphere",
+           f"model.params.n_iters={DUALREF_ITERS}",
+           f"model.arch.model.warmup_iters={DUALREF_SWITCH}", "device=cuda",
+           f"basedir={LOG_DIR}", "expname=dualref",
+           "progress_refresh_rate=100"]
+
+
+def refnerf_studio_path(config, studio):
+    """The Ref-NeRF studio path's run for ``drive_main_path``; prints its
+    metrics beside the flagship studio path's (``studio``)."""
+    from nmf_tpu_torch import train
+
+    def run(log):
+        _, res = train.reconstruction(config.compose(REFNERF_STUDIO),
+                                      log=log)
+        note = "".join(
+            f", {k} {res[k]:.4f} (flagship studio {studio[k]:.4f})"
+            for k in ("ssim", "norm_err", "tint_psnr")) + (
+            f"; flagship studio PSNR {studio['psnr']:.2f} dB")
+        return res, res["train_seconds"], note
+
+    return run
+
+
+@contextlib.contextmanager
+def blend_records(blends):
+    """Within the block, the normal blend each train step runs with
+    (``predicted_normal_lambda``, set by the tick before it) is appended
+    to ``blends``."""
+    from nmf_tpu_torch import trainer
+
+    step = trainer.train_step
+
+    def recorded(nmf, *args, **kwargs):
+        blends.append(float(nmf.predicted_normal_lambda.detach()))
+        return step(nmf, *args, **kwargs)
+
+    trainer.train_step = recorded
+    try:
+        yield
+    finally:
+        trainer.train_step = step
+
+
+def refnerf_tcnn_path(torch, config):
+    """The hash-grid path's run for ``drive_main_path``. Prints the normal
+    blend at BLEND_AT and fails unless it read 0 and 1; prints the
+    occupied share after every density sweep (not held to anything) and
+    the card's peak allocated memory."""
+    from nmf_tpu_torch import train
+
+    def run(log):
+        blends, shares = [], []
+        torch.cuda.reset_peak_memory_stats()
+        with blend_records(blends), occgrid_records(shares, []):
+            nmf, res = train.reconstruction(config.compose(REFNERF_TCNN),
+                                            log=log)
+        read = {i: blends[i] for i in BLEND_AT}
+        print(f"refnerf_tcnn: normal blend at iterations {read}")
+        if not (0.0 in read.values() and 1.0 in read.values()):
+            fail(f"refnerf_tcnn: the normal blend did not read 0 and 1: "
+                 f"{read}")
+        print(f"refnerf_tcnn: occupied share after each of {len(shares)} "
+              "sweeps: " + " ".join(f"{x:.4f}" for x in shares))
+        note = (f"; march {nmf.sampler.n_samples} steps of "
+                f"{nmf.sampler.stepsize:.6f}, occupied share at the end "
+                f"{shares[-1]:.4f}, card peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return res, res["train_seconds"], note
+
+    return run
+
+
+@contextlib.contextmanager
+def retrace_shades(counts):
+    """Within the block, ``counts`` counts RefNeRF.shade calls by
+    recursion level."""
+    from nmf_tpu_torch.models.refnerf import RefNeRF
+
+    shade = RefNeRF.shade
+
+    def counted(self, *args, recur=0, **kwargs):
+        counts[recur] = counts.get(recur, 0) + 1
+        return shade(self, *args, recur=recur, **kwargs)
+
+    RefNeRF.shade = counted
+    try:
+        yield
+    finally:
+        RefNeRF.shade = shade
+
+
+def dualref_path(config):
+    """The dual path's run for ``drive_main_path``. Fails unless the switch
+    to the microfacet model was the run's first schedule event, at
+    DUALREF_SWITCH, followed by an optimizer rebuild, and Ref-NeRF shaded
+    retrace passes."""
+    from nmf_tpu_torch import train
+
+    def run(log):
+        lines, shades = [], {}
+
+        def logged(s):
+            lines.append(s)
+            log(s)
+
+        with retrace_shades(shades):
+            nmf, res = train.reconstruction(config.compose(DUALREF),
+                                            log=logged)
+        events = [ln for ln in lines if "schedule event" in ln]
+        print(f"dualref: schedule events {events}; RefNeRF.shade calls by "
+              f"recursion level {shades}")
+        if not (events and events[0].startswith(
+                f"iter {DUALREF_SWITCH - 1}: schedule event -> optimizer "
+                "reinit") and nmf.model.use_model2):
+            fail(f"dualref: the switch at {DUALREF_SWITCH} with its "
+                 f"optimizer rebuild did not run first: {events}")
+        if not shades.get(1):
+            fail("dualref: Ref-NeRF shaded no retrace pass")
+        note = f"; RefNeRF.shade calls by recursion level {shades}"
         return res, res["train_seconds"], note
 
     return run
@@ -1531,6 +1754,8 @@ def llff_path(torch, config):
 
 def main():
     import torch
+
+    t_start = time.time()
 
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -1614,7 +1839,8 @@ def main():
     # through dataset=lego, the gt_bg panorama read from its EXR ----
     write_blender_scene(config)
     launches["blender"], by_size["blender"], blender = drive_main_path(
-        torch, kernels, "blender", card, STUDIO_ITERS, blender_path(config))
+        torch, kernels, "blender", card, STUDIO_ITERS // 2,
+        blender_path(config))
     gap = blender["psnr"] - studio["psnr"]
     print(f"blender vs studio test PSNR: {blender['psnr']:.2f} - "
           f"{studio['psnr']:.2f} = {gap:+.2f} dB (bar {BLENDER_DB} dB)")
@@ -1637,13 +1863,30 @@ def main():
             ("occgrid", occgrid_path(config, trained), OCCGRID_ITERS),
             ("occgrid_crop", occgrid_crop_path(torch, config, trained),
              CROP_STEPS),
-            ("llff", llff_path(torch, config), LLFF_ITERS)):
+            ("llff", llff_path(torch, config), LLFF_ITERS),
+            ("refnerf_studio", refnerf_studio_path(config, studio),
+             STUDIO_ITERS),
+            ("refnerf_tcnn", refnerf_tcnn_path(torch, config),
+             REFNERF_TCNN_ITERS),
+            ("dualref", dualref_path(config), DUALREF_ITERS)):
         with BinsumRecorder((), held={r["sizes"] for r in
                                       binsum["shapes"]}) as rec:
             launches[label], by_size[label], _ = drive_main_path(
                 torch, kernels, label, card, iters, path,
                 hold=lambda sizes, label=label, rec=rec: hold_new_sizes(
                     torch, dev, gen, kernels, label, sizes, rec, deferred))
+    hash_k3 = {size: n for size, n in by_size["refnerf_tcnn"][
+        "binsum_rows"].items() if size[1] == 2}
+    print(f"refnerf_tcnn: K3 launches on the hash tables (N, C, R, dtype "
+          f"code): {hash_k3}, {sum(hash_k3.values()) / REFNERF_TCNN_ITERS}"
+          " a train step")
+    if not hash_k3:
+        fail("refnerf_tcnn: K3 never scattered into the hash tables")
+    retrace = by_size["dualref"]["composite_fwd"].get((1024, 96), 0)
+    print(f"dualref: K1 launches at the retrace shape 1024 x 96: {retrace}")
+    if not retrace:
+        fail("dualref: K1 never launched at the retrace shape 1024 x 96 "
+             "after the switch")
 
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
@@ -1721,6 +1964,7 @@ def main():
                   f"launches on {card}: real ids {t['real']:.4f} ms, "
                   f"synthetic ids at the same sizes {t['synthetic']:.4f} ms")
 
+    print(f"chip_smoke: whole script {time.time() - t_start:.1f} s on {card}")
     line = [{key: v for key, v in k.items() if key != "kernel"}
             | {"launches": launches["microfacet_tensorf2"][k["name"]],
                "launches_by_path": {p: n[k["name"]]

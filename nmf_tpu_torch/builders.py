@@ -1,8 +1,9 @@
 """Instantiate the composed model from a hydra-style config dict
 (``nmf_tpu/builders.py``) for the targets of the ported slices: the
-TensorVMSplit field, the AlphaGridSampler and the occupancy-grid sampler
-(which the upstream NerfAccSampler / Raymarcher / ContinuousAlphagrid
-targets map onto), the TensoRF and Microfacet shading models
+TensorVMSplit and hash-grid fields (HashGridRF, and TCNNRF, which nmf_tpu
+maps onto it), the AlphaGridSampler and the occupancy-grid sampler (which
+the upstream NerfAccSampler / Raymarcher / ContinuousAlphagrid targets map
+onto), the TensoRF, Microfacet, RefNeRF and DualModel shading models
 (RandHydraMLPDiffuse, MLPBRDF with ListISH encoders, GGX sampling), the
 MLPNormal / AppDimNormal normal modules and the IntegralEquirect envmap.
 Every other target and knob raises ``NotImplementedError`` naming the
@@ -12,8 +13,10 @@ import math
 
 import torch
 
+from .fields.hashgrid import init_hashgrid_rf
 from .fields.tensorf import init_tensorvm_split
 from .models.microfacet import init_microfacet
+from .models.refnerf import DualModel, init_refnerf
 from .models.tensorf import init_tensorf_shade
 from .modules.bg import init_integral_equirect
 from .modules.brdf import init_mlp_brdf
@@ -37,11 +40,23 @@ def _clean(cfg):
     return {k: v for k, v in (cfg or {}).items() if not k.startswith("_")}
 
 
+# nmf_tpu's keys of the hash field; it pops ``distance_scale`` before it
+# reads them, so the hash field keeps its default 25 whatever the yaml
+# says, and it ignores ``grid_size``
+HASHGRID_KEYS = {"n_levels", "n_features", "log2_hashmap_size",
+                 "base_resolution", "finest_resolution", "app_dim",
+                 "hidden_w", "activation", "density_shift", "step_ratio",
+                 "lr", "lr_net"}
+
+
 def build_field(generator, cfg, aabb, grid_size=None):
     t = _target(cfg)
+    kw = _clean(cfg)
+    if t.endswith("HashGridRF") or t.endswith("TCNNRF"):
+        return init_hashgrid_rf(generator, aabb, **{
+            k: v for k, v in kw.items() if k in HASHGRID_KEYS})
     if not (t.endswith("TensorVMSplit") or not t):
         raise NotImplementedError(f"field {t!r} {_LATER}")
-    kw = _clean(cfg)
     for key, why in (("dbasis", "dbasis"), ("contract_space",
                                             "contract_space"),
                      ("num_pretrain", "density pretraining"),
@@ -117,16 +132,8 @@ def build_encoder(cfg):
     return ListISH(degs=tuple(_clean(cfg).get("degs", (0, 1, 2, 4))))
 
 
-def build_microfacet(generator, kw, app_dim):
-    for key, why in (("visibility_module", "the visibility module"),
-                     ("bright_sampler", "the bright-ray sampler"),
-                     ("russian_roulette", "Russian roulette"),
-                     ("detach_N_iters", "the detach_N schedule"),
-                     ("percent_bright", "bright-ray substitution")):
-        if kw.get(key):
-            raise NotImplementedError(f"model.arch.model.{key} ({why}) "
-                                      f"{_LATER}")
-    dm_cfg = kw.pop("diffuse_module", None) or {}
+def build_diffuse(generator, dm_cfg, app_dim):
+    """The material head: RandHydraMLPDiffuse (the one ported)."""
     dt = _target(dm_cfg)
     if dt and not dt.endswith("RandHydraMLPDiffuse"):
         raise NotImplementedError(f"diffuse module {dt!r} {_LATER}")
@@ -139,9 +146,22 @@ def build_microfacet(generator, kw, app_dim):
     allowed = {"feape", "hidden_w", "num_layers", "initializer", "lr",
                "start_roughness", "tint_bias", "diffuse_bias", "diffuse_mul",
                "roughness_bias", "f0_bias", "roughness_cfg"}
-    dm = RandHydraMLPDiffuse(app_dim, generator=generator,
-                             **{k: v for k, v in dm_kw.items()
-                                if k in allowed})
+    return RandHydraMLPDiffuse(app_dim, generator=generator,
+                               **{k: v for k, v in dm_kw.items()
+                                  if k in allowed})
+
+
+def build_microfacet(generator, kw, app_dim):
+    for key, why in (("visibility_module", "the visibility module"),
+                     ("bright_sampler", "the bright-ray sampler"),
+                     ("russian_roulette", "Russian roulette"),
+                     ("detach_N_iters", "the detach_N schedule"),
+                     ("percent_bright", "bright-ray substitution")):
+        if kw.get(key):
+            raise NotImplementedError(f"model.arch.model.{key} ({why}) "
+                                      f"{_LATER}")
+    dm = build_diffuse(generator, kw.pop("diffuse_module", None) or {},
+                       app_dim)
 
     brdf_cfg = kw.pop("brdf", None) or {}
     bt = _target(brdf_cfg)
@@ -163,11 +183,29 @@ def build_microfacet(generator, kw, app_dim):
     return init_microfacet(app_dim, dm, brdf, GGXSampler(), **kw)
 
 
+def build_refnerf(generator, kw, app_dim):
+    dm = build_diffuse(generator, kw.pop("diffuse_module", None) or {},
+                       app_dim)
+    ref_kw = _clean(kw.pop("ref_module", None) or {})
+    if "ref_encoder" in ref_kw:
+        ref_kw["ref_encoder"] = build_encoder(ref_kw["ref_encoder"])
+    return init_refnerf(app_dim, dm, generator=generator, **ref_kw)
+
+
 def build_model(generator, cfg, app_dim):
     t = _target(cfg)
     kw = _clean(cfg)
     if t.endswith("Microfacet"):
         return build_microfacet(generator, kw, app_dim)
+    if t.endswith("RefNeRF"):
+        return build_refnerf(generator, kw, app_dim)
+    if t.endswith("DualModel"):
+        # nmf_tpu: the upstream key is warmup_iters; model1 shades every
+        # retrace pass, so the alternating mode has no switch of its own
+        m1 = build_model(generator, kw.pop("model1"), app_dim)
+        m2 = build_model(generator, kw.pop("model2"), app_dim)
+        return DualModel(m1, m2, switch_iter=int(
+            kw.get("switch_iter", kw.get("warmup_iters", 0))))
     if not (t.endswith("TensoRF") or not t):
         raise NotImplementedError(f"model {t!r} {_LATER}")
     dm_cfg = kw.get("diffuse_module") or {}
@@ -206,19 +244,13 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but torch sees no CUDA device; "
                            "pass device=cpu to run on the CPU")
-    for key in ("hdr", "use_predicted_normals", "detach_inter"):
+    for key in ("hdr", "detach_inter"):
         if arch_cfg.get(key):
             raise NotImplementedError(f"model.arch.{key} {_LATER}")
-    if arch_cfg.get("normal_module") and not arch_cfg.get(
-            "align_pred_norms", True):
-        raise NotImplementedError(
-            f"model.arch.align_pred_norms=false with a normal module {_LATER}")
     if arch_cfg.get("mlp_dtype") not in (None, "f32"):
         raise NotImplementedError(
             f"model.arch.mlp_dtype={arch_cfg['mlp_dtype']!r} (bf16 MLP "
             f"operands) {_LATER}")
-    if int(arch_cfg.get("geonorm_iters", -1) or -1) > 0:
-        raise NotImplementedError(f"model.arch.geonorm_iters {_LATER}")
     for key in ("app_samples_per_ray", "merge_runs",
                 "recur_proposal_samples_per_ray", "proposal_pad_iters"):
         if int(arch_cfg.get(key, -1) or -1) > 0:
@@ -247,6 +279,12 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
               proposal_pad=arch_cfg.get("proposal_pad", 0.01),
               recur_stepmul=arch_cfg.get("recur_stepmul", 1.0),
               eval_batch_size=arch_cfg.get("eval_batch_size", 4096),
-              lr_scale=arch_cfg.get("lr_scale", 1.0)).to(device)
+              lr_scale=arch_cfg.get("lr_scale", 1.0),
+              use_predicted_normals=arch_cfg.get("use_predicted_normals",
+                                                 False),
+              align_pred_norms=arch_cfg.get("align_pred_norms", True),
+              geonorm_iters=arch_cfg.get("geonorm_iters", -1),
+              geonorm_interp_iters=arch_cfg.get("geonorm_interp_iters",
+                                                1000)).to(device)
     sampler.update(rf, init=True)
     return nmf

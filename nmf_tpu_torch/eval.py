@@ -226,9 +226,9 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
     {prefix}{i:03d}.png, one folder of PNGs per map,
     stats{prefix}.yaml, mean.txt and the envmap as {prefix}pano.png and
     {prefix}pano.exr (FLOAT, ZIPS).
-    Random draws come from a generator seeded with ``seed``. The rays are
-    NDC rays where the dataset says so (``ndc_ray``, LLFF scenes), which
-    nmf_tpu's eval does not read (ROADMAP C)."""
+    Random draws come from a generator seeded with ``seed``. As nmf_tpu's
+    eval does, it renders every ray through the world-ray march, also an
+    LLFF scene's NDC rays, which training marches in NDC (ROADMAP C.5)."""
     chunk = nmf.eval_batch_size
     draws = Draws(torch.Generator(device=_device(nmf)).manual_seed(seed))
     W, H = dataset["img_wh"]
@@ -245,8 +245,7 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + (1 - gt[..., 3:])
         maps = render_image(nmf, dataset["all_rays"][px], (H, W), chunk=chunk,
-                            draws=draws.scoped(f"image{img_i}"),
-                            ndc_ray=dataset.get("ndc_ray", False))
+                            draws=draws.scoped(f"image{img_i}"))
         pred = np.clip(maps["rgb_map"], 0, 1)
         name = f"{prefix}{img_i:03d}.png"
         stats["psnr"].append(utils.rgb_psnr(pred, gt))

@@ -91,3 +91,24 @@ def integrated_pos_enc(x_coord, min_deg: int, max_deg: int):
     y_var = (x_cov_diag[..., None, :] * scales[:, None] ** 2).reshape(shape)
     return expected_sin(torch.cat([y, y + 0.5 * math.pi], dim=-1),
                         torch.cat([y_var, y_var], dim=-1))[0]
+
+
+class _TruncExp(torch.autograd.Function):
+    """exp(clip(x, -15, 10)) whose backward is g * exp(clip(x, -15, 10)),
+    with no zero outside the clip (the custom VJP of nmf_tpu's
+    ``trunc_exp``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.exp(torch.clamp(x, -15, 10))
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return g * out
+
+
+def trunc_exp(x):
+    return _TruncExp.apply(x)

@@ -14,11 +14,14 @@ whose sample positions keep their gradient to the bounce directions. The
 background is a constant colour or, for a retrace pass, the envmap.
 
 With a normal module, the shading sees ``normalize(lam * predicted + (1 -
-lam) * geometric)`` normals (``lam``: ``predicted_normal_lambda``, 0 in
-the ported configs) and the primary pass reports the predicted normals'
-misalignment as ``prediction_loss``. With ``ndc_ray`` the primary pass
-marches NDC rays (``sampler.sample_ndc``); retrace passes march world
-rays.
+lam) * geometric)`` normals (``lam``: ``predicted_normal_lambda``, 1 from
+the build with ``use_predicted_normals``; with ``geonorm_iters`` > 0 each
+tick sets it to ``clip((it - geonorm_iters) / geonorm_interp_iters, 0,
+1)``) and, with ``align_pred_norms``, the primary pass reports the
+predicted normals' misalignment as ``prediction_loss``; under the geonorm
+schedule ``ori_loss`` also counts the predicted normals facing away. With
+``ndc_ray`` the primary pass marches NDC rays (``sampler.sample_ndc``);
+retrace passes march world rays.
 
 Not ported yet: ``merge_runs``, two-stage shading
 (``app_samples_per_ray``), ground-truth normals and ``detach_inter``; a
@@ -43,16 +46,22 @@ class NMF(nn.Module):
                  normal_module=None, max_samples_per_ray=-1,
                  recur_samples_per_ray=-1, proposal_samples_per_ray=-1,
                  proposal_pad=0.01, recur_stepmul=1.0, eval_batch_size=4096,
-                 lr_scale=1.0):
+                 lr_scale=1.0, use_predicted_normals=False,
+                 align_pred_norms=True, geonorm_iters=-1,
+                 geonorm_interp_iters=1000):
         super().__init__()
         self.rf = rf
         self.sampler = sampler
         self.model = model
         self.bg_module = bg_module
         self.normal_module = normal_module
-        # nmf_tpu's predicted/geometric normal blend (0 unless a
-        # geonorm_iters schedule, not ported, moves it)
-        self.register_buffer("predicted_normal_lambda", torch.zeros(()))
+        # the predicted/geometric normal blend
+        use_pred = bool(use_predicted_normals) and normal_module is not None
+        self.register_buffer("predicted_normal_lambda",
+                             torch.tensor(1.0 if use_pred else 0.0))
+        self.align_pred_norms = bool(align_pred_norms)
+        self.geonorm_iters = int(geonorm_iters or -1)
+        self.geonorm_interp_iters = int(geonorm_interp_iters)
         self.max_samples_per_ray = int(max_samples_per_ray)
         self.recur_samples_per_ray = int(recur_samples_per_ray)
         self.proposal_samples_per_ray = int(proposal_samples_per_ray)
@@ -66,16 +75,23 @@ class NMF(nn.Module):
         must be rebuilt. The sampler's mask rebuild or density sweep sees
         the field before this tick's upsample, as in nmf_tpu; at one of
         the sampler's ``shrink_iters`` the field is then cropped to the
-        sampler's occupied box (a rebuild even when the box stays)."""
+        sampler's occupied box (a rebuild even when the box stays). The
+        geonorm schedule sets the normal blend."""
         m_changed = self.model.check_schedule(iteration)
         s_changed = self.sampler.check_schedule(iteration, self.rf)
         r_changed = self.rf.check_schedule(iteration)
-        if iteration in getattr(self.sampler, "shrink_iters", ()):
+        if (iteration in getattr(self.sampler, "shrink_iters", ())
+                and hasattr(self.rf, "shrink")):
             self.rf.shrink(self.sampler.get_bounds())
             r_changed = True
         changed = m_changed or s_changed or r_changed
         if changed:
             self.sampler.update(self.rf, init=True)
+        if self.geonorm_iters > 0:
+            lam = min(max((iteration - self.geonorm_iters)
+                          / self.geonorm_interp_iters, 0.0), 1.0)
+            with torch.no_grad():
+                self.predicted_normal_lambda.fill_(lam)
         return changed
 
 
@@ -248,10 +264,14 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
         zero = weight.new_zeros(())
         ori = zero
         if world_normal is not None:
-            ndotv = (-viewdirs.detach() * world_normal).sum(-1)
-            ori = (aweight * torch.clamp(ndotv, max=0) ** 2).sum()
+            vdet = viewdirs.detach()
+            facing = torch.clamp((-vdet * world_normal).sum(-1), max=0) ** 2
+            if nmf.geonorm_iters > 0 and pred_normal is not None:
+                facing = torch.clamp((-vdet * pred_normal).sum(-1),
+                                     max=0) ** 2 + facing
+            ori = (aweight * facing).sum()
         pred = zero
-        if pred_normal is not None:
+        if pred_normal is not None and nmf.align_pred_norms:
             pred = (aweight * 2 * (1 - (pred_normal * world_normal).sum(-1))
                     ).sum()
         stats.update({

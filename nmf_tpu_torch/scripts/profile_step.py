@@ -13,8 +13,10 @@ mask rebuild; windows at 150 (128^3) and 450 (300^3). model=microfacet_
 tensorf (the occupancy grid): chip_smoke.py's occgrid cut, an upsample at
 300, then a shrink tick at 400 at the occupancy threshold 0.05; windows at
 150 (128^3, the whole box) and 450 (300^3 voxels on the box the shrink
-left: a few voxels off a face in some runs, the whole box in others). For
-each window it
+left: a few voxels off a face in some runs, the whole box in others).
+model=refnerf: the flagship's schedule; windows at 150 and 450.
+model=refnerf_tcnn (on field=hashgrid): chip_smoke.py's hash-grid cut
+(geonorm_interp_iters 400); windows at 150 and 450. For each window it
 prints the step time (CUDA events, profiler off), the device-busy share of
 the profiled window, and the kernels ranked by device time per step,
 grouped into classes (composite K1 and K2 and binsum K3 apart). Needs a
@@ -49,6 +51,10 @@ SCHEDULES = {
                             "model.arch.sampler.shrink_iters=[400]",
                             "model.arch.sampler.occ_thre=0.05"],
                            (150, 450)),
+    "refnerf": (["model.params.n_iters=600", "field.upsamp_list=[300]",
+                 "model.arch.sampler.update_list=[]"], (150, 450)),
+    "refnerf_tcnn": (["field=hashgrid", "model.params.n_iters=600",
+                      "model.arch.geonorm_interp_iters=400"], (150, 450)),
 }
 
 # kernel-name substrings -> class, first match wins

@@ -90,8 +90,12 @@ def group_lrs(nmf: NMF):
     group with other betas, bg_mul, has learning rate 0 in the shipped
     configs."""
     s = nmf.lr_scale
+    # a model without a top-level material head (DualModel) gives the
+    # group nmf_tpu's fallback 1e-3; it has no tensor in it
+    dm = getattr(nmf.model, "diffuse_module", None)
     lrs = {"rf_grid": nmf.rf.lr * s, "rf_net": nmf.rf.lr_net * s,
-           "diffuse": nmf.model.diffuse_module.lr * s, "frozen": 0.0}
+           "diffuse": (dm.lr if dm is not None else 1e-3) * s,
+           "frozen": 0.0}
     brdf = getattr(nmf.model, "brdf", None)
     if brdf is not None:
         lrs["brdf"] = brdf.lr * s
@@ -124,7 +128,10 @@ class Optimizer:
     The update of step ``count`` (0-based) is
     ``-sched(count) * lr * m_hat / (sqrt(v_hat) + eps)`` with optax's
     moment and bias-correction arithmetic. Frozen tensors (lr 0) count in
-    the clip's norm and never move.
+    the clip's norm and never move: as in nmf_tpu, every tensor of the
+    shading model outside ``diffuse_module``, ``brdf`` and
+    ``visibility_module`` is frozen, Ref-NeRF's reflection MLP and both
+    of DualModel's models among them.
     """
 
     def __init__(self, nmf: NMF, cfg: OptimConfig):

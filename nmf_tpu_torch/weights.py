@@ -2,7 +2,9 @@
 
 ``from_jax_state_dict(nmf, sd)`` takes the flat ``{path: ndarray}`` of
 ``nmf_tpu.ckpt.state_dict`` (keys like ``.rf.density_rf.planes[0]``,
-``.model.brdf.mlp.layers[0]['w']`` or ``.bg_module.bg_mat``) and copies
+``.model.brdf.mlp.layers[0]['w']``, ``.rf.encoding.tables``,
+``.model.ref_module.mlp.layers[0]['w']``, ``.model.model1...`` or
+``.bg_module.bg_mat``) and copies
 every entry into the port's module of the same path: an attribute per
 ``.name``, a list entry per ``[i]``. MLP layers are ``{"w": (in, out),
 "b"}`` dicts in nmf_tpu and ``nn.Linear``s here: ``['w']`` is the
@@ -111,6 +113,9 @@ def from_jax_state_dict(nmf, sd):
     rf = nmf.rf
 
     def plane_shapes():
+        # a field without planes (the hash field) never changes shape
+        if not hasattr(rf, "density_rf"):
+            return None
         return [tuple(p.shape) for p in rf.density_rf.planes]
 
     # a freshly built field's planes are square at its first axis'

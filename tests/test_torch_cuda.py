@@ -13,8 +13,8 @@ torch = pytest.importorskip("torch")
 from nmf_tpu_torch.ops import grid_sample as tgs  # noqa: E402
 from nmf_tpu_torch.ops.kernels import binsum as tbin  # noqa: E402
 from nmf_tpu_torch.ops.kernels import composite as tcomp  # noqa: E402
-from torch_inputs import (FLAGSHIP, OCCGRID, binsum_case,  # noqa: E402
-                          composite_inputs, cotangents)
+from torch_inputs import (FLAGSHIP, OCCGRID, REFNERF_TCNN,  # noqa: E402
+                          binsum_case, composite_inputs, cotangents)
 
 
 @pytest.fixture
@@ -87,7 +87,7 @@ def test_transmittance_kernel_matches_plain_on_card(cuda, shape, rays):
     "collisions", "runs", "flagship C=6", "flagship C=9", "flagship C=12",
     "flagship C=44", "flagship C=288", "bf16 C=288", "bf16 C=160",
     "bf16 C=112", "bf16 C=80", "long runs C=9", "long runs C=44",
-    "all out of range"])
+    "all out of range", "hash C=2"])
 def test_binsum_kernel_matches_plain_on_card(cuda, case):
     # atomics add in a varying order: rtol/atol 1e-4. The bf16 cases hand
     # both the same bf16 rows, which the kernel reads in place and the
@@ -247,6 +247,16 @@ def test_occgrid_march_on_card_matches_cpu(cuda, march):
     assert 0 < int(cpu["valid"].sum()) < cpu["valid"].numel()
     for k in ("xyz", "z_vals", "dists"):
         torch.testing.assert_close(card[k], cpu[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tiny_refnerf_tcnn_step_on_card_matches_cpu(cuda):
+    """The same for the tiny refnerf_tcnn on the hash field (4 levels of
+    2^12 rows, the 16^3 occupancy grid, Ref-NeRF shading, the autograd
+    normals with their second-order gradients to the tables): the loss,
+    the image and every gradient."""
+    _flagship_step_card_vs_cpu(cuda, [], base=REFNERF_TCNN,
+                               weights={"pred_lambda": 3e-4})
 
 
 def _flagship_step_card_vs_cpu(cuda, extra, base=FLAGSHIP, weights=None,

@@ -70,7 +70,8 @@ def _write_sphere_scene(root, n_views=9, H=48, W=64, focal=52.0):
 def test_llff_fern_trains_on_cpu(tmp_path):
     """dataset=llff_fern with the default model through the port's CLI on
     the CPU: the forward-facing sphere (9 views of 64 x 48, downsampled 4x
-    to 16 x 12), NDC rays in training and in the final test eval."""
+    to 16 x 12), NDC rays in training; the final test eval marches them
+    as world rays, as nmf_tpu's does (ROADMAP C.5)."""
     _write_sphere_scene(tmp_path / "data")
     lines = []
     _, res = ttrain.reconstruction(ttrain.config_lib.compose([
@@ -85,6 +86,38 @@ def test_llff_fern_trains_on_cpu(tmp_path):
     assert sorted(p.name for p in out.glob("*.png")) == [
         "000.png", "001.png", "pano.png"]
     assert np.isfinite(res["loss"]) and np.isfinite(res["psnr"])
+
+
+def test_evaluate_renders_llff_views_as_nmf_tpu(tmp_path, monkeypatch):
+    """Both packages' ``evaluate`` on the test views of a tiny LLFF scene
+    (the sphere, 9 views of 64 x 48 loaded 4x down, NDC rays): each renders
+    them through the world-ray march (neither passes ``ndc_ray``); the
+    images, held at FWD, and the PSNRs agree. The model is the tiny
+    tensorf on the NDC box."""
+    from nmf_tpu import eval as jeval
+    from nmf_tpu_torch import eval as teval
+
+    _write_sphere_scene(tmp_path)
+    cfg = ttrain.config_lib.compose(["dataset=llff_fern",
+                                     f"datadir={tmp_path}"])
+    ds = tload(cfg["dataset"], str(tmp_path), split="test")
+    assert ds["ndc_ray"] and ds["all_rays"].shape[0] == 2 * 16 * 12
+    jn, tn, _ = build_pair(aabb=NDC_BBOX, near_far=NDC_NEAR_FAR)
+    images = {"jax": [], "torch": []}
+    for name, module in (("jax", jeval), ("torch", teval)):
+        def record(*args, fn=module.render_image, name=name, **kwargs):
+            maps = fn(*args, **kwargs)
+            images[name].append(maps["rgb_map"])
+            return maps
+
+        monkeypatch.setattr(module, "render_image", record)
+    jres = jeval.evaluate(jn, ds, jax.random.PRNGKey(0),
+                          compute_extra_metrics=False)
+    tres = teval.evaluate(tn, ds, compute_extra_metrics=False)
+    assert len(images["jax"]) == len(images["torch"]) == 2
+    for a, b in zip(images["torch"], images["jax"]):
+        close(a, b, FWD, "rgb_map")
+    assert abs(tres["psnr"] - jres["psnr"]) < 1e-3
 
 
 def test_pose_helpers_match():

@@ -195,7 +195,9 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 
 def test_unported_targets_raise():
-    for ov in (["model=refnerf"], ["field=hashgrid"]):
+    for ov in (["field=grid"], [
+            "model=tensorf", "model.arch.model.diffuse_module._target_="
+            "modules.render_modules.MLPRender_PE"]):
         cfg = ttrain.config_lib.compose(ov)
         with pytest.raises(NotImplementedError):
             tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")

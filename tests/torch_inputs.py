@@ -20,6 +20,27 @@ FLAGSHIP = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
 OCCGRID = ["model=microfacet_tensorf", *FLAGSHIP[1:],
            "model.arch.sampler.grid_size=16"]
 
+# the tiny Ref-NeRF on the tensorf field: grid 16, 16 samples a ray
+REFNERF = ["model=refnerf", *FLAGSHIP[1:7],
+           "model.arch.sampler.update_list=[]"]
+
+# the tiny Ref-NeRF on the hash field (tests/test_extras.py's: 4 levels,
+# tables of 2^12 rows, finest resolution 64), a 16^3 occupancy grid
+REFNERF_TCNN = ["model=refnerf_tcnn", "field=hashgrid",
+                "dataset=synthetic_sphere", "field.n_levels=4",
+                "field.log2_hashmap_size=12", "field.finest_resolution=64",
+                "model.arch.sampler.grid_size=16",
+                "model.arch.max_samples_per_ray=16",
+                "model.arch.bg_module.bg_resolution=32"]
+
+# the tiny DualModel warmup (model1 Ref-NeRF, model2 the flagship's tiny
+# microfacet), switching at iteration 3
+DUALREF = ["model=microfacet_dualref", *FLAGSHIP[1:9],
+           "model.arch.model.warmup_iters=3",
+           "model.arch.model.model2.brdf_ray_budget=[512,128]",
+           "model.arch.model.model2.max_retrace_rays=[32]",
+           "model.arch.bg_module.bg_resolution=32"]
+
 
 def composite_inputs(B=37, K=16, seed=0, opaque=False):
     rng = np.random.default_rng(seed)
@@ -101,6 +122,17 @@ def binsum_case(case):
             idx = sorted_runs(rng, N, R, 32)
         idx[:50] = R + 3
         return idx, rng.normal(size=(N, C)).astype(np.float32), R
+    if case == "hash C=2":
+        # the hash tables' gradient rows (8-byte rows, the kernel's
+        # scalar-atomic branch): 4 levels of T = 4,096 rows, 8 corners of
+        # 5,000 points a level; the coarse levels pile into 17 and 300
+        # rows, the fine ones spread over the table
+        T, n = 4096, 5000
+        idx = np.concatenate([
+            level * T + rng.integers(0, cells, 8 * n)
+            for level, cells in enumerate((17, 300, T, T))]).astype(np.int32)
+        idx[::97] = 4 * T + 1
+        return idx, rng.normal(size=(idx.size, 2)).astype(np.float32), 4 * T
     if case == "collisions":
         # the pattern of tests/test_pallas.py: everything piles into 7 rows
         # and 100 rows are out of range
