@@ -27,7 +27,13 @@
    the upsample, one after), recorded during the main path.
    Then runs one train step and one eval render of a tiny model=tensorf
    and a tiny model=microfacet_tensorf2 on the card and on the CPU (the
-   plain versions) and compares the loss, the image and every gradient.
+   plain versions) and compares the loss, the image and every gradient;
+   so for the tiny tensorf with each TensorVMSplit option (the init
+   modes, relu / exp / identity, dbasis without the smoothed normals,
+   contract_space) and the MLPRender_PE head, and for the tiny flagship
+   on the grid field and with autograd normals; then an eval render of a
+   ListRF of two tiny grid fields, 5 density pretraining iterations, the
+   field.calibrate solve and one streaming render, card against CPU.
 4. Main paths, at the shipped widths on synthetic_sphere: model=tensorf
    (128^3 grid, 16/24 components, app_dim 24, featureC 128, 4096 rays x
    192 samples) for 300 iterations through one upsample to 300^3 and two
@@ -44,9 +50,9 @@
    the host and timed) with the studio 8k arms' knobs: fixed-shape field
    (planes padded to 300^2 from step 0), lr_upsample_reset=false,
    distortion 1e-3, batch 4096. 1000 iterations paused by stop_iter at
-   500 and resumed from the _latest.th to the end, through the arms'
-   schedule scaled to 1000 iterations (seven upsamples to 300^3, three at
-   and after the pause, and five mask rebuilds), the final checkpoint,
+   750 and resumed from the _latest.th to the end, through the arms'
+   schedule scaled to 1000 iterations (seven upsamples to 300^3 and five
+   mask rebuilds, one of each after the pause), the final checkpoint,
    the final eval
    (PSNR, SSIM, norm_err, tint_psnr, envmap_psnr), then render_only on
    the checkpoint, which must reproduce the eval's PSNR within 0.1 dB.
@@ -61,7 +67,7 @@
    equal to the panorama, the loader's seconds); then the trainer on
    dataset=lego with only datadir, near_far and stack_norms overridden and
    the studio knobs, resumed from the studio path's pause checkpoint at
-   500 and trained to 1000 on the same random streams, the final eval's
+   750 and trained to 1000 on the same random streams, the final eval's
    envmap metrics against the EXR and pano.exr written. Its test PSNR must
    clear 17 dB and land within 0.5 dB of the studio path's.
 7. The lego-size load: 100 train views of 800^2 RGBA (the sphere
@@ -83,12 +89,13 @@
    (20 views of 4032 x 3024 PNG, poses_bounds.npy) written and checked on
    the host as the loader reads it (4x area downsample, NDC rays), then
    dataset=llff_fern with the default model for 600 iterations. Its bar
-   is the test PSNR of the test views rendered with NDC rays; the final
-   eval's (world rays, as nmf_tpu's) is printed beside it.
+   is the test PSNR of the first test view rendered with NDC rays; the
+   final eval's of that view (world rays, as nmf_tpu's) is printed beside
+   it (one of the three test views: a cut for the script's time).
 10. The Ref-NeRF studio path: model=refnerf with the refnerf 8k arm's
-   field and model (the studio knobs) on the studio path's scene and cut,
-   1000 iterations without a pause; PSNR, SSIM, norm_err and tint_psnr
-   beside the flagship studio path's.
+   field and model (the studio knobs) on the studio path's scene, 500
+   iterations (cut from 1000 for the script's time) without a pause;
+   PSNR, SSIM, norm_err and tint_psnr beside the flagship studio path's.
 11. The hash-grid path: model=refnerf_tcnn field=hashgrid at the shipped
    widths (16 levels of 2^19 x 2 tables, the 128^3 occupancy grid at its
    shipped threshold, 3,542 march steps a ray) on synthetic_sphere, 600
@@ -100,7 +107,20 @@
    iterations, the switch to the microfacet model at 300: it must be the
    run's first schedule event, with an optimizer rebuild, Ref-NeRF must
    shade retrace passes and K1 must launch at the retrace shape 1024 x 96.
-   Every K1 / K2 / K3 launch of paths 8 to 12 must be at a size held
+13. The grid path: model=microfacet_tensorf2 field=grid at grid.yaml's
+   widths (a 2,097,152-row table of 28 f32 columns) and the flagship's
+   samples and budgets on synthetic_sphere: the first 600 iterations of
+   the shipped 30,000-iteration schedule, paused, then render_only on the
+   pause checkpoint; the card's peak memory, K3's launches and L2-cold
+   time on the grid table beside zeros + index_add_ and its bound.
+14. The tensorf_pe path: model=tensorf with the MLPRender_PE head, dbasis
+   and 100 density pretraining iterations (their mean alpha printed
+   beside start_density), at the tensorf path's widths and cut (the first
+   300 iterations of the 30,000-iteration schedule, paused; the upsample
+   at 150, rebuilds at 100 and 200), its pause checkpoint rendered in
+   batch and streamed (render_only stream=true, K1 in full mode a block):
+   the two within 0.1 dB; the streaming eval's seconds and blocks.
+   Every K1 / K2 / K3 launch of paths 8 to 14 must be at a size held
    before it or held after the path on the ids it launched with; each
    must clear 17 dB.
 
@@ -357,11 +377,13 @@ FLAGSHIP_B = 4096
 # (B, K, full, backward, timed): K1/K2 at every shape the main paths launch
 # them with: the tensorf train step and the flagship's proposal pass
 # (forward only) at 4096 x 192; the flagship's primary pass after
-# resampling and its retrace pass, weights-only. Then ragged shapes,
-# checked in both modes and not timed.
+# resampling and its retrace pass, weights-only; the streaming eval's
+# blocks (a chunk of 4096 rays x 64 samples, full mode, forward only).
+# Then ragged shapes, checked in both modes and not timed.
 COMPOSITE_CASES = (
     [(4096, 192, False, True, True), (4096, 192, True, True, True),
-     (FLAGSHIP_B, 96, False, True, True), (1024, 96, False, True, True)]
+     (FLAGSHIP_B, 96, False, True, True), (1024, 96, False, True, True),
+     (4096, 64, True, False, True)]
     + [(B, K, full, True, False) for B, K in ((1000, 1), (1000, 33),
                                                (257, 1024))
        for full in (False, True)])
@@ -730,23 +752,28 @@ def step_sums(rows):
     return sums
 
 
-def check_small_path(torch, dev):
+# the tiny model=tensorf of check_small_path and the module checks
+SMALL_TENSORF = [
+    "model=tensorf", "dataset=synthetic_sphere", "dataset.image_size=16",
+    "dataset.n_views=4", "field.N_voxel_init=4096",
+    "field.N_voxel_final=8000", "field.gather_dtype=f32",
+    "model.arch.max_samples_per_ray=32",
+    "model.arch.model.diffuse_module.featureC=16"]
+
+
+def check_small_path(torch, dev, extra=(), what="small path"):
     """One train step (loss and every gradient) and one eval render of a
-    tiny model=tensorf on the card, against the same on the CPU, where the
-    wrappers run the plain versions that the CPU tests hold against
-    nmf_tpu. Same seed, rays and jitter on both; f32 gathers."""
+    tiny model=tensorf (with the overrides ``extra``) on the card, against
+    the same on the CPU, where the wrappers run the plain versions that
+    the CPU tests hold against nmf_tpu. Same seed, rays and jitter on both;
+    f32 gathers."""
     from nmf_tpu_torch import config, trainer
     from nmf_tpu_torch.builders import build_nmf
     from nmf_tpu_torch.data import load_dataset
     from nmf_tpu_torch.ops.draws import Draws
     from nmf_tpu_torch.render import render
 
-    cfg = config.compose([
-        "model=tensorf", "dataset=synthetic_sphere", "dataset.image_size=16",
-        "dataset.n_views=4", "field.N_voxel_init=4096",
-        "field.N_voxel_final=8000", "field.gather_dtype=f32",
-        "model.arch.max_samples_per_ray=32",
-        "model.arch.model.diffuse_module.featureC=16"])
+    cfg = config.compose([*SMALL_TENSORF, *extra])
     ds = load_dataset(cfg["dataset"], None, "train")
     rays_np, rgb_np = ds["all_rays"][:512], ds["all_rgbs"][:512]
     weights = trainer.LossWeights(l1_weight=8e-5)
@@ -767,18 +794,18 @@ def check_small_path(torch, dev):
         runs.append([loss.detach(), image]
                     + [p.grad for p in nmf.parameters() if p.grad is not None])
     if len(runs[0]) != len(runs[1]) or len(runs[0]) < 10:
-        fail("small path: the card and the CPU differentiated other tensors")
+        fail(f"{what}: the card and the CPU differentiated other tensors")
     # f32 on both; sums (scatter atomics, matmuls, cumsum) in another order
     pairs = [(a.cpu(), b) for a, b in zip(*runs)]
-    err = max_err(torch, pairs[:2], 1e-4, 1e-5, "small path loss/render")
+    err = max_err(torch, pairs[:2], 1e-4, 1e-5, f"{what} loss/render")
     for i, (a, b) in enumerate(pairs[2:]):
         scale = float(b.abs().max())
         err = max(err, max_err(torch, [(a, b)], 1e-3, 1e-4 * scale + 1e-9,
-                               f"small path gradient {i}"))
+                               f"{what} gradient {i}"))
     return err
 
 
-def check_small_flagship(torch, dev):
+def check_small_flagship(torch, dev, extra=(), what="small flagship"):
     """One train step (loss and every gradient) and one eval render of a
     tiny model=microfacet_tensorf2 (grid 16^3, envmap 32 x 64, 16 samples a
     ray, 8 after the proposal and 8 retraced, bounce budgets [512, 128], 32
@@ -786,7 +813,7 @@ def check_small_flagship(torch, dev):
     draw made by one CPU generator for both. The envmap's mip bias is 12,
     so every lookup box spans the map: a box of a few texels is a
     difference of SAT entries that the card's cumsum and the CPU's sum in
-    another order (tests/test_torch_flagship.py)."""
+    another order (tests/test_torch_flagship.py). ``extra``: overrides."""
     from nmf_tpu_torch import config, trainer
     from nmf_tpu_torch.builders import build_nmf
     from nmf_tpu_torch.data import load_dataset
@@ -803,7 +830,7 @@ def check_small_flagship(torch, dev):
         "model.arch.proposal_samples_per_ray=8",
         "model.arch.model.brdf_ray_budget=[512,128]",
         "model.arch.model.max_retrace_rays=[32]",
-        "model.arch.bg_module.bg_resolution=32"])
+        "model.arch.bg_module.bg_resolution=32", *extra])
     ds = load_dataset(cfg["dataset"], None, "train")
     rays_np, rgb_np = ds["all_rays"][:64], ds["all_rgbs"][:64]
     weights = trainer.LossWeights(l1_weight=8e-5, ori_lambda=0.1)
@@ -828,15 +855,172 @@ def check_small_flagship(torch, dev):
                        trainer.differentiated_tensors(nmf)
                        if t.grad is not None])
     if len(runs[0]) != len(runs[1]) or len(runs[0]) < 20:
-        fail("small flagship: the card and the CPU differentiated other "
-             "tensors")
+        fail(f"{what}: the card and the CPU differentiated other tensors")
     pairs = [(a.cpu(), b) for a, b in zip(*runs)]
-    err = max_err(torch, pairs[:3], 1e-4, 1e-5, "small flagship loss/render")
+    err = max_err(torch, pairs[:3], 1e-4, 1e-5, f"{what} loss/render")
     for i, (a, b) in enumerate(pairs[3:]):
         scale = float(b.abs().max())
         err = max(err, max_err(torch, [(a, b)], 1e-3, 1e-3 * scale + 1e-9,
-                               f"small flagship gradient {i}"))
+                               f"{what} gradient {i}"))
     return err
+
+
+# This slice's modules in the tiny card-against-CPU phase: the tensorf
+# field's options (each init mode, the activations, dbasis without the
+# smoothed normals, contract_space) and the MLPRender_PE head in the tiny
+# model=tensorf; the dense voxel field and autograd normals (which train
+# through the shading) in the tiny flagship
+PE_HEAD = ("model.arch.model.diffuse_module._target_="
+           "modules.render_modules.MLPRender_PE")
+SMALL_TENSORF_OPTIONS = (
+    ["field.init_mode=trig"], ["field.init_mode=unif"],
+    ["field.init_mode=unifplane"], ["field.init_mode=randplane"],
+    ["field.activation=relu", "field.density_shift=-0.05"],
+    ["field.activation=exp"], ["field.activation=identity"],
+    ["field.dbasis=true", "field.numer_grad=false"],
+    ["field.contract_space=true"], [PE_HEAD])
+SMALL_FLAGSHIP_OPTIONS = (["field=grid", "field.grid_size=[16,16,16]"],
+                          ["field.numer_grad=false"])
+def small_models(torch, dev, overrides, seed=0):
+    """(the dataset, the model of ``overrides`` built on the card, and on
+    the CPU), from one seed."""
+    from nmf_tpu_torch import config
+    from nmf_tpu_torch.builders import build_nmf
+    from nmf_tpu_torch.data import load_dataset
+
+    cfg = config.compose(overrides)
+    ds = load_dataset(cfg["dataset"], None, "train")
+    return ds, [build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
+                          tuple(cfg["dataset"]["near_far"]), seed=seed,
+                          device=d) for d in (dev, torch.device("cpu"))]
+
+
+def check_small_modules(torch, dev):
+    """The slice's modules on the card against the CPU, beyond one train
+    step: an eval render of a ListRF of two tiny grid fields (the second
+    shifted and rotated), 5 pretraining iterations (the density factors
+    and dbasis_mat after them), the field.calibrate solve under
+    activation=exp (density_shift) and one streaming render (rgb, acc,
+    depth). Every random draw from one CPU generator for both. Returns
+    {check: max_abs_err}."""
+    from nmf_tpu_torch import train, trainer
+    from nmf_tpu_torch.builders import build_field
+    from nmf_tpu_torch.fields.listrf import make_listrf
+    from nmf_tpu_torch.ops.draws import Draws
+    from nmf_tpu_torch.render import render
+    from nmf_tpu_torch.render_streaming import render_streaming
+
+    errs = {}
+    ds, nmfs = small_models(torch, dev, [*SMALL_TENSORF, "field=grid",
+                                         "field.grid_size=[8,8,8]"])
+    rays_np = ds["all_rays"][:512]
+    c, s = math.cos(0.6), math.sin(0.6)
+    rot = [[[1, 0, 0], [0, 1, 0], [0, 0, 1]], [[c, -s, 0], [s, c, 0],
+                                               [0, 0, 1]]]
+    images = []
+    for nmf in nmfs:
+        d = nmf.rf.aabb.device
+        other = build_field(torch.Generator().manual_seed(1),
+                            {"_target_": "GridRF", "grid_size": [6, 7, 5]},
+                            [[-0.9, -0.7, -1.0], [0.8, 0.6, 0.7]]).to(d)
+        nmf.rf = make_listrf([nmf.rf, other], offsets=[[0, 0, 0],
+                                                       [0.5, -0.2, 0.3]],
+                             rotations=rot)
+        nmf.sampler.update(nmf.rf, init=True)
+        with torch.no_grad():
+            ims = render(nmf, torch.from_numpy(rays_np).to(d),
+                         is_train=False)[0]
+        images.append([ims["rgb_map"], ims["acc_map"]])
+    errs["listrf render"] = max_err(
+        torch, [(a.cpu(), b) for a, b in zip(*images)], 1e-4, 1e-5,
+        "small ListRF render")
+
+    _, nmfs = small_models(torch, dev, [*SMALL_TENSORF,
+                                        "field.num_pretrain=5",
+                                        "field.dbasis=true"])
+    lines, grads = [], []
+    step = trainer.adam_step
+
+    def first_grads(t, g, m, v, count, *args):
+        if count == 1:
+            grads[-1].append(g.clone())
+        step(t, g, m, v, count, *args)
+
+    trainer.adam_step = first_grads
+    try:
+        for nmf in nmfs:
+            grads.append([])
+            train.pretrain_density(
+                nmf, Draws(torch.Generator().manual_seed(3)), 1e-3,
+                log=lines.append)
+    finally:
+        trainer.adam_step = step
+    # the first iteration's gradients, from the same factors on both, at
+    # the train step's tolerance
+    if len(grads[0]) != len(grads[1]) or not grads[0]:
+        fail("small pretraining: the card and the CPU stepped other tensors")
+    errs["pretraining gradients"] = max(
+        max_err(torch, [(a.cpu(), b)], 1e-3,
+                1e-4 * float(b.abs().max()) + 1e-9,
+                f"small pretraining gradient {i}")
+        for i, (a, b) in enumerate(zip(*grads)))
+    # after 5 iterations: Adam's first steps are ~lr * sign(g), so an
+    # entry whose gradient is within rounding of 0 may move the other way,
+    # by up to 2 lr a step; the count of entries off decides (more than 1%
+    # would be a fault)
+    params = [[p.detach() for p in (*n.rf.density_rf.parameters(),
+                                    n.rf.dbasis_mat)] for n in nmfs]
+    worst, loose = 0.0, 0
+    for a, b in zip(*params):
+        err = (a.cpu() - b).abs()
+        worst = max(worst, float(err.max()))
+        loose += int((err > 1e-4 + 1e-4 * b.abs()).sum())
+    total = sum(b.numel() for b in params[1])
+    if loose > 0.01 * total:
+        fail(f"small pretraining: {loose} of {total} entries off")
+    errs["pretraining"] = worst
+    print(f"  pretraining on the card / the CPU: {lines[0]} / {lines[1]}")
+
+    _, nmfs = small_models(torch, dev, [*SMALL_TENSORF,
+                                        "field.calibrate=true",
+                                        "field.activation=exp"])
+    shifts = []
+    for nmf in nmfs:
+        train.pretrain_density(nmf, Draws(torch.Generator().manual_seed(4)),
+                               1e-3, log=lambda s: None)
+        shifts.append(torch.tensor([nmf.rf.density_shift]))
+    errs["calibrate"] = max_err(torch, [tuple(shifts)], 1e-5, 1e-6,
+                                "small calibrate density_shift")
+
+    ds, nmfs = small_models(torch, dev, [*SMALL_TENSORF, PE_HEAD,
+                                         "field.density_shift=-1"])
+    outs = []
+    for nmf in nmfs:
+        ims, stats = render_streaming(
+            nmf, torch.from_numpy(ds["all_rays"][:512]).to(nmf.rf.aabb.device))
+        outs.append([ims["rgb_map"], ims["acc_map"], ims["depth"]])
+    errs["streaming render"] = max_err(
+        torch, [(a.cpu(), b) for a, b in zip(*outs)], 1e-4, 1e-5,
+        "small streaming render")
+    return errs
+
+
+def check_small_slice(torch, dev):
+    """The tiny card-against-CPU phase of this slice: one train step and
+    one eval render per option (``SMALL_TENSORF_OPTIONS``,
+    ``SMALL_FLAGSHIP_OPTIONS``), then ``check_small_modules``. Prints and
+    returns {check: max_abs_err}."""
+    errs = {}
+    for extra in SMALL_TENSORF_OPTIONS:
+        what = "tensorf " + " ".join(extra)
+        errs[what] = check_small_path(torch, dev, extra, what)
+    for extra in SMALL_FLAGSHIP_OPTIONS:
+        what = "flagship " + " ".join(extra)
+        errs[what] = check_small_flagship(torch, dev, extra, what)
+    errs |= check_small_modules(torch, dev)
+    for what, err in errs.items():
+        print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
+    return errs
 
 
 # (label, overrides) of the main paths, at the shipped widths. tensorf:
@@ -990,14 +1174,18 @@ def drive_main_path(torch, kernels, label, card, n_iters, run,
 # hemisphere cameras, the fixed-shape field (planes padded to the final
 # 300^2 from step 0), the global lr schedule across events, distortion
 # 1e-3, batch 4096 (max_batch_size 4096 pins the controller). Cut: 24 views
-# of 128^2 a split, 1000 iterations paused at 500 (stop_iter) and resumed
-# to the end, the arms' schedule scaled from 8000 iterations to 1000: seven
-# upsamples (128^3 -> 300^3 live, three at and after the pause) and five
-# alpha-mask rebuilds, the final eval on 8 test views; then render_only on
+# of 128^2 a split, 1000 iterations paused at STUDIO_PAUSE (stop_iter)
+# and resumed to the end, the arms' schedule scaled from 8000 iterations to
+# 1000: seven upsamples (128^3 -> 300^3 live) and five alpha-mask rebuilds,
+# the final eval on 8 test views; then render_only on
 # the final checkpoint. The rebuilds stay: on this scene the flagship's
 # density clears the mask threshold by the first one, and without them
 # floaters hold the test PSNR near 15 dB however long it trains.
 STUDIO_ITERS = 1000
+# the studio path's stop_iter pause, which the Blender path resumes from
+# (late in the run, so the Blender path trains few steps: the script's
+# time)
+STUDIO_PAUSE = 3 * STUDIO_ITERS // 4
 # the arms' upsample and mask-rebuild iterations, scaled to STUDIO_ITERS
 STUDIO_UPSAMPLES, STUDIO_REBUILDS = (
     ",".join(str(i * STUDIO_ITERS // 8000) for i in iters)
@@ -1035,8 +1223,8 @@ def check_launches(kernels, label, launches, by_size):
 
 def studio_path(config):
     """Generate the studio scene (timed, on the host) and return the
-    path's run for ``drive_main_path``: a stop_iter pause at half the
-    iterations, a resume to the end with the final checkpoint and eval,
+    path's run for ``drive_main_path``: a stop_iter pause at
+    STUDIO_PAUSE, a resume to the end with the final checkpoint and eval,
     then render_only on that checkpoint. Fails unless the loss before the
     pause is finite, the pause left a _latest.th, the resumed run wrote
     the final checkpoint and render_only reproduces the final eval's PSNR
@@ -1056,10 +1244,10 @@ def studio_path(config):
     folder = LOG_DIR / "synthetic_studio_studio"
 
     def run(log):
-        half = STUDIO_ITERS // 2
         _, first = train.reconstruction(config.compose(
-            [*STUDIO, "expname=studio", f"stop_iter={half}"]), log=log)
-        if first.get("paused_at") != half or not (
+            [*STUDIO, "expname=studio", f"stop_iter={STUDIO_PAUSE}"]),
+            log=log)
+        if first.get("paused_at") != STUDIO_PAUSE or not (
                 folder / "synthetic_studio_studio_latest.th").exists():
             fail(f"studio: the stop_iter pause left no _latest.th ({first})")
         if not math.isfinite(first.get("loss", float("nan"))):
@@ -1081,8 +1269,9 @@ def studio_path(config):
                 f"{res['envmap_psnr']:.2f} dB; before / after the pause "
                 f"{first['rays_per_sec']:.0f} / {res['rays_per_sec']:.0f} "
                 f"rays/s, mean step "
-                f"{1e3 * first['train_seconds'] / half:.2f} / "
-                f"{1e3 * res['train_seconds'] / half:.2f} ms; render_only "
+                f"{1e3 * first['train_seconds'] / STUDIO_PAUSE:.2f} / "
+                f"{1e3 * res['train_seconds'] / (STUDIO_ITERS - STUDIO_PAUSE):.2f}"
+                f" ms; render_only "
                 f"PSNR {rendered['psnr']:.2f} dB")
         return res, first["train_seconds"] + res["train_seconds"], note
 
@@ -1092,8 +1281,8 @@ def studio_path(config):
 # The Blender path: the studio path's scene written in nerf_synthetic layout
 # under the folder dataset=lego names, trained through dataset=lego with
 # the studio knobs. Cut: it resumes from the studio path's pause checkpoint
-# (iteration 500, copied as its own _latest.th) and trains the second half,
-# as the studio path's resumed run does, on the same random streams. Its
+# (STUDIO_PAUSE, copied as its own _latest.th) and trains to the end, as
+# the studio path's resumed run does, on the same random streams. Its
 # only dataset overrides: datadir, the studio cameras' near_far and the
 # normal / tint maps. Only 8-bit quantization separates its data from the
 # studio path's, so its test PSNR must land within BLENDER_DB of the studio
@@ -1191,7 +1380,7 @@ def blender_path(config):
 
         _, res = train.reconstruction(config.compose(BLENDER), log=logged)
         if not any(ln.startswith("resume:") and
-                   f"at iter {STUDIO_ITERS // 2}" in ln for ln in lines):
+                   f"at iter {STUDIO_PAUSE}" in ln for ln in lines):
             fail("blender: the run did not resume from the studio path's "
                  "pause checkpoint")
         pano = folder / "imgs_test_all" / "pano.exr"
@@ -1347,7 +1536,7 @@ OCCGRID = ["model=microfacet_tensorf", "dataset=synthetic_sphere",
 # only the flagship path's cut.
 LLFF_VIEWS, LLFF_W, LLFF_H, LLFF_FOCAL, LLFF_DOWN = 20, 4032, 3024, 3260.0, 4
 LLFF_ITERS = 600
-LLFF = ["dataset=llff_fern", f"datadir={DATA_DIR}",
+LLFF = ["dataset=llff_fern", f"datadir={DATA_DIR}", "N_vis=1",
         f"model.params.n_iters={LLFF_ITERS}",
         f"field.upsamp_list=[{LLFF_ITERS // 2}]",
         "model.arch.sampler.update_list=[]", "device=cuda",
@@ -1541,9 +1730,9 @@ def check_llff_split(scenedir, ds, split):
 
 
 def ndc_test_psnr(torch, nmf, cfg):
-    """Mean PSNR of the test views rendered as training marches them (NDC
-    rays, ``render_image(ndc_ray=True)``); ``evaluate``, as nmf_tpu's,
-    marches them as world rays."""
+    """Mean PSNR of the first ``cfg["N_vis"]`` test views rendered as
+    training marches them (NDC rays, ``render_image(ndc_ray=True)``);
+    ``evaluate``, as nmf_tpu's, marches them as world rays."""
     import numpy as np
 
     from nmf_tpu_torch import eval as eval_lib
@@ -1554,7 +1743,7 @@ def ndc_test_psnr(torch, nmf, cfg):
     W, H = ds["img_wh"]
     n_px = H * W
     psnrs = []
-    for i in range(ds["all_rays"].shape[0] // n_px):
+    for i in range(min(ds["all_rays"].shape[0] // n_px, cfg["N_vis"])):
         px = slice(i * n_px, (i + 1) * n_px)
         maps = eval_lib.render_image(
             nmf, ds["all_rays"][px], (H, W), chunk=nmf.eval_batch_size,
@@ -1602,12 +1791,15 @@ def llff_path(torch, config):
 
 # The Ref-NeRF studio path: model=refnerf with the field and model of the
 # refnerf 8k arm (runs/synthetic_studio_refnerf_studio8k/config.yaml: the
-# studio knobs) on the studio path's scene and cut: 24 views of 128^2,
-# 1000 iterations, the arm's upsamples and mask rebuilds scaled by 1/8,
-# no pause.
+# studio knobs) on the studio path's scene: 24 views of 128^2, the arm's
+# upsamples and mask rebuilds scaled by 1/8, no pause. Cut for the
+# script's time from the studio path's 1000 iterations to 500, which run
+# the events up to 500 (five upsamples, three rebuilds).
+REFNERF_STUDIO_ITERS = STUDIO_ITERS // 2
 REFNERF_STUDIO = ["dataset=synthetic_studio", "dataset.hemisphere=true",
                   "dataset.n_views=24", "dataset.image_size=128",
                   "model=refnerf", *STUDIO_KNOBS[1:],
+                  f"model.params.n_iters={REFNERF_STUDIO_ITERS}",
                   "expname=refnerf_studio"]
 # The hash-grid path: model=refnerf_tcnn field=hashgrid at their shipped
 # widths (16 levels of 2^19 x 2 tables, the 128^3 occupancy grid at its
@@ -1632,6 +1824,126 @@ DUALREF = ["model=microfacet_dualref", "dataset=synthetic_sphere",
            f"model.arch.model.warmup_iters={DUALREF_SWITCH}", "device=cuda",
            f"basedir={LOG_DIR}", "expname=dualref",
            "progress_refresh_rate=100"]
+
+
+# The two paths of the grid field and the PE head run the first iterations
+# of the shipped 30,000-iteration schedule, paused by stop_iter, and are
+# evaluated by render_only on the pause checkpoint. A run cut to n_iters =
+# 600 squeezes the schedule's 1000x learning-rate decay into those steps:
+# Adam then moves a parameter at most ~0.02 x 0.145 x 600 = 1.7, too little
+# for a dense voxel (the grid flagship stalled at 15.15 dB, 16.65 dB at
+# 1200), and density pretraining with dbasis stalled at 12.37 dB for 300
+# iterations (PERF.md, section 6).
+# The grid path: the flagship on the dense voxel field at grid.yaml's
+# widths (128^3 volumes, app_dim 24: a 2,097,152-row table of 28 f32
+# columns) with the flagship's 192 / 96 / 96 samples, budgets [65536,
+# 16384], 1024 retrace rays and batch 4096, on synthetic_sphere: 600
+# iterations and no mask rebuild (the shipped rebuilds start at 2000; the
+# grid's density never clears the mask's threshold in this cut, ROADMAP
+# C.2 and C.7); the field has no upsample.
+GRID_ITERS = 600
+GRID_PATH = ["model=microfacet_tensorf2", "field=grid",
+             "dataset=synthetic_sphere", f"stop_iter={GRID_ITERS}",
+             "device=cuda", f"basedir={LOG_DIR}", "expname=grid",
+             "progress_refresh_rate=100"]
+# The tensorf_pe path: model=tensorf with the MLPRender_PE head (viewpe 6,
+# pospe 6, featureC 128), dbasis and 100 density pretraining iterations,
+# at the tensorf path's widths and cut (300 iterations, the upsample at
+# 150, mask rebuilds at 100 and 200); its test views evaluated in batch,
+# then streamed (render_only with stream=true).
+TENSORF_PE_ITERS = 300
+TENSORF_PE = ["model=tensorf", PE_HEAD, "field.dbasis=true",
+              "field.num_pretrain=100", "dataset=synthetic_sphere",
+              f"stop_iter={TENSORF_PE_ITERS}", "field.upsamp_list=[150]",
+              "model.arch.sampler.update_list=[100,200]", "device=cuda",
+              f"basedir={LOG_DIR}", "expname=tensorf_pe",
+              "progress_refresh_rate=100"]
+STREAM_DB = 0.1  # streamed against batch test PSNR
+
+
+def paused_run(config, overrides, log, *renders):
+    """Train ``overrides`` to its stop_iter pause, then render_only the
+    pause checkpoint once per entry of ``renders`` (extra overrides).
+    Returns the model, the pause's results and each render's test metrics
+    with its ``seconds``."""
+    from nmf_tpu_torch import train
+
+    cfg = config.compose(overrides)
+    nmf, res = train.reconstruction(cfg, log=log)
+    if res.get("paused_at") != int(cfg["stop_iter"]):
+        fail(f"{cfg['expname']}: the run did not pause at stop_iter: {res}")
+    name = f"synthetic_sphere_{cfg['expname']}"
+    ckpt = LOG_DIR / name / f"{name}_latest.th"
+    rendered = []
+    for i, extra in enumerate(renders):
+        t0 = time.time()
+        test = train.dispatch(config.compose(
+            [*overrides, *extra, f"expname={cfg['expname']}_render{i}",
+             "render_only=True", f"ckpt={ckpt}"]), log=log)[1]
+        rendered.append(test | {"seconds": time.time() - t0})
+    return nmf, res, rendered
+
+
+def grid_path(torch, config):
+    """The grid path's run for ``drive_main_path``; notes the card's peak
+    allocated memory."""
+
+    def run(log):
+        torch.cuda.reset_peak_memory_stats()
+        nmf, res, (test,) = paused_run(config, GRID_PATH, log, [])
+        note = (f"; table {tuple(nmf.rf.grid_rows.shape)} f32, march "
+                f"{nmf.sampler.n_samples} steps, card peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return res | test, res["train_seconds"], note
+
+    return run
+
+
+def tensorf_pe_path(config, k1):
+    """The tensorf_pe path's run for ``drive_main_path``: training with
+    the pretraining (its mean alpha printed beside start_density), then
+    render_only of the pause checkpoint in batch and with stream=true.
+    Fails unless the streamed PSNR clears the bar and lands within
+    STREAM_DB of the batch one; notes the streaming eval's seconds and
+    blocks a chunk: K1's (``k1``) launches at (chunk, 64), one a block,
+    over the chunks of the streamed views."""
+    import yaml
+
+    def run(log):
+        lines = []
+
+        def logged(s):
+            lines.append(s)
+            log(s)
+
+        nmf, res, (batch, streamed) = paused_run(
+            config, TENSORF_PE, logged, [], ["stream=true"])
+        pre = [ln for ln in lines if ln.startswith("pretrain density")]
+        cfg = config.compose(TENSORF_PE)
+        start = cfg["model"]["params"]["start_density"]
+        print(f"tensorf_pe: {pre} (params.start_density {start})")
+        if not pre:
+            fail("tensorf_pe: no density pretraining ran")
+        chunk = nmf.eval_batch_size
+        stats = (LOG_DIR / f"synthetic_sphere_{cfg['expname']}_render1"
+                 / "imgs_render" / "stats.yaml")
+        views = len(yaml.safe_load(stats.read_text())["psnr"])
+        chunks = views * -(-cfg["dataset"]["image_size"] ** 2 // chunk)
+        blocks = k1.launches_by_size[(chunk, 64)] / chunks
+        gap = streamed["psnr"] - batch["psnr"]
+        print(f"tensorf_pe: streamed test PSNR {streamed['psnr']:.4f} dB "
+              f"against batch {batch['psnr']:.4f} ({gap:+.4f} dB, bar "
+              f"{STREAM_DB}); eval seconds {streamed['seconds']:.1f} "
+              f"streamed, {batch['seconds']:.1f} batch; {blocks:.1f} "
+              f"blocks a chunk over {chunks} chunks")
+        if not (abs(gap) <= STREAM_DB and streamed["psnr"] > PSNR_BAR):
+            fail(f"tensorf_pe: streamed PSNR {streamed['psnr']} against "
+                 f"batch {batch['psnr']} (bars {STREAM_DB} dB, {PSNR_BAR} dB)")
+        note = (f"; streamed {streamed['psnr']:.2f} dB in "
+                f"{streamed['seconds']:.1f} s, {blocks:.1f} blocks a chunk")
+        return res | batch, res["train_seconds"], note
+
+    return run
 
 
 def refnerf_studio_path(config, studio):
@@ -1802,6 +2114,7 @@ def main():
     print(f"small path, card vs CPU: max_abs_err {check_small_path(torch, dev):.3e}")
     print("small flagship, card vs CPU: max_abs_err "
           f"{check_small_flagship(torch, dev):.3e}")
+    check_small_slice(torch, dev)
 
     # ---- the main paths: full-width training + test eval, tensorf then
     # the microfacet flagship; each kernel's count is set to 0 just before
@@ -1839,7 +2152,7 @@ def main():
     # through dataset=lego, the gt_bg panorama read from its EXR ----
     write_blender_scene(config)
     launches["blender"], by_size["blender"], blender = drive_main_path(
-        torch, kernels, "blender", card, STUDIO_ITERS // 2,
+        torch, kernels, "blender", card, STUDIO_ITERS - STUDIO_PAUSE,
         blender_path(config))
     gap = blender["psnr"] - studio["psnr"]
     print(f"blender vs studio test PSNR: {blender['psnr']:.2f} - "
@@ -1865,10 +2178,14 @@ def main():
              CROP_STEPS),
             ("llff", llff_path(torch, config), LLFF_ITERS),
             ("refnerf_studio", refnerf_studio_path(config, studio),
-             STUDIO_ITERS),
+             REFNERF_STUDIO_ITERS),
             ("refnerf_tcnn", refnerf_tcnn_path(torch, config),
              REFNERF_TCNN_ITERS),
-            ("dualref", dualref_path(config), DUALREF_ITERS)):
+            ("dualref", dualref_path(config), DUALREF_ITERS),
+            ("grid", grid_path(torch, config), GRID_ITERS),
+            ("tensorf_pe", tensorf_pe_path(config, next(
+                k["kernel"] for k in kernels if k["name"] == "composite_fwd")),
+             TENSORF_PE_ITERS)):
         with BinsumRecorder((), held={r["sizes"] for r in
                                       binsum["shapes"]}) as rec:
             launches[label], by_size[label], _ = drive_main_path(
@@ -1882,6 +2199,18 @@ def main():
           " a train step")
     if not hash_k3:
         fail("refnerf_tcnn: K3 never scattered into the hash tables")
+    grid_k3 = {size: n for size, n in by_size["grid"]["binsum_rows"].items()
+               if size[1] == 28}
+    print(f"grid: K3 launches on the table (N, C, R, dtype code): "
+          f"{grid_k3}, {sum(grid_k3.values()) / GRID_ITERS} a train step")
+    if not grid_k3:
+        fail("grid: K3 never scattered into the grid table")
+    stream_k1 = {size: n for size, n in by_size["tensorf_pe"][
+        "composite_fwd"].items() if size[1] == 64}
+    print(f"tensorf_pe: K1 launches at the streaming blocks (B, 64): "
+          f"{stream_k1}")
+    if not stream_k1:
+        fail("tensorf_pe: K1 never composited a streaming block")
     retrace = by_size["dualref"]["composite_fwd"].get((1024, 96), 0)
     print(f"dualref: K1 launches at the retrace shape 1024 x 96: {retrace}")
     if not retrace:

@@ -1,9 +1,11 @@
 """Instantiate the composed model from a hydra-style config dict
-(``nmf_tpu/builders.py``) for the targets of the ported slices: the
-TensorVMSplit and hash-grid fields (HashGridRF, and TCNNRF, which nmf_tpu
-maps onto it), the AlphaGridSampler and the occupancy-grid sampler (which
-the upstream NerfAccSampler / Raymarcher / ContinuousAlphagrid targets map
-onto), the TensoRF, Microfacet, RefNeRF and DualModel shading models
+(``nmf_tpu/builders.py``) for the targets of the ported slices: every
+field nmf_tpu builds (TensorVMSplit with all its options, the hash-grid
+field HashGridRF and TCNNRF, which nmf_tpu maps onto it, and the dense
+voxel field GridRF / Grid), the AlphaGridSampler and the occupancy-grid
+sampler (which the upstream NerfAccSampler / Raymarcher /
+ContinuousAlphagrid targets map onto), the TensoRF (MLPRender_Fea or
+MLPRender_PE head), Microfacet, RefNeRF and DualModel shading models
 (RandHydraMLPDiffuse, MLPBRDF with ListISH encoders, GGX sampling), the
 MLPNormal / AppDimNormal normal modules and the IntegralEquirect envmap.
 Every other target and knob raises ``NotImplementedError`` naming the
@@ -13,6 +15,7 @@ import math
 
 import torch
 
+from .fields.grid import init_grid_rf
 from .fields.hashgrid import init_hashgrid_rf
 from .fields.tensorf import init_tensorvm_split
 from .models.microfacet import init_microfacet
@@ -47,6 +50,19 @@ HASHGRID_KEYS = {"n_levels", "n_features", "log2_hashmap_size",
                  "base_resolution", "finest_resolution", "app_dim",
                  "hidden_w", "activation", "density_shift", "step_ratio",
                  "lr", "lr_net"}
+# nmf_tpu's keys of the grid field, which keeps its default distance_scale
+# for the same reason
+GRID_KEYS = {"grid_size", "app_dim", "init_scale", "activation",
+             "density_shift", "step_ratio", "lr", "lr_net"}
+# nmf_tpu's keys of TensorVMSplit that the port reads (the others it
+# accepts are dead in nmf_tpu too: density_res_multi, interp_mode, and
+# scatter_kernel, which picks nmf_tpu's scatter, not a result)
+TENSORF_KEYS = {"density_n_comp", "appearance_n_comp", "app_dim",
+                "grid_size", "N_voxel_init", "N_voxel_final", "upsamp_list",
+                "init_mode", "d_init_val", "app_init_val", "activation",
+                "density_shift", "contract_space", "dbasis", "step_ratio",
+                "smoothing", "numer_grad", "lr", "lr_net", "num_pretrain",
+                "calibrate", "gather_dtype", "fixed_shape", "distance_scale"}
 
 
 def build_field(generator, cfg, aabb, grid_size=None):
@@ -55,20 +71,14 @@ def build_field(generator, cfg, aabb, grid_size=None):
     if t.endswith("HashGridRF") or t.endswith("TCNNRF"):
         return init_hashgrid_rf(generator, aabb, **{
             k: v for k, v in kw.items() if k in HASHGRID_KEYS})
+    if t.endswith("GridRF") or t.endswith("Grid"):
+        kw = {k: v for k, v in kw.items() if k in GRID_KEYS}
+        if grid_size is not None:
+            kw["grid_size"] = grid_size
+        return init_grid_rf(generator, aabb, **kw)
     if not (t.endswith("TensorVMSplit") or not t):
         raise NotImplementedError(f"field {t!r} {_LATER}")
-    for key, why in (("dbasis", "dbasis"), ("contract_space",
-                                            "contract_space"),
-                     ("num_pretrain", "density pretraining"),
-                     ("calibrate", "density calibration")):
-        if kw.get(key):
-            raise NotImplementedError(f"field.{key} ({why}) {_LATER}")
-    allowed = {"density_n_comp", "appearance_n_comp", "app_dim", "grid_size",
-               "N_voxel_init", "N_voxel_final", "upsamp_list", "init_mode",
-               "d_init_val", "app_init_val", "activation", "density_shift",
-               "step_ratio", "gather_dtype", "lr", "lr_net",
-               "distance_scale", "smoothing", "numer_grad", "fixed_shape"}
-    kw = {k: v for k, v in kw.items() if k in allowed}
+    kw = {k: v for k, v in kw.items() if k in TENSORF_KEYS}
     if grid_size is not None:
         kw["grid_size"] = grid_size
     if "upsamp_list" in kw:
@@ -209,9 +219,10 @@ def build_model(generator, cfg, app_dim):
     if not (t.endswith("TensoRF") or not t):
         raise NotImplementedError(f"model {t!r} {_LATER}")
     dm_cfg = kw.get("diffuse_module") or {}
+    dm_kw = _clean(dm_cfg)
     if _target(dm_cfg).endswith("MLPRender_PE"):
-        raise NotImplementedError(f"diffuse module MLPRender_PE {_LATER}")
-    return init_tensorf_shade(app_dim, generator=generator, **_clean(dm_cfg))
+        dm_kw["head"] = "pe"
+    return init_tensorf_shade(app_dim, generator=generator, **dm_kw)
 
 
 def build_normal_module(generator, cfg, app_dim):

@@ -9,7 +9,10 @@ torch, and the port reads nmf_tpu's without JAX.
 
 ``load`` rebuilds the model from the saved config through ``build_nmf``, at
 the saved box and grid size (a shrunk or upsampled field's), and copies
-the arrays in by path (``weights.from_jax_state_dict``). A format-1
+the arrays in by path (``weights.from_jax_state_dict``). A composed scene
+(``fields/listrf.py``; its keys ``.rf.fields[i]...``) gets one field of
+the config's kind per saved field, each then taking its arrays and box
+from the state dict. A format-1
 file (nmf_tpu's whole pickled flax pytree, no ``format`` key) needs JAX to
 unpickle, so the port refuses it.
 """
@@ -17,9 +20,11 @@ import pickle
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from . import weights
-from .builders import build_nmf
+from .builders import build_field, build_nmf
+from .fields.listrf import make_listrf
 
 
 class Format1Checkpoint(ValueError):
@@ -78,8 +83,20 @@ def load(path, device="cuda"):
     written by either package."""
     payload = _read(path)
     cfg = payload["config"]
+    sd = payload["state_dict"]
+    grid_size = tuple(payload["grid_size"]) or None
     nmf = build_nmf(cfg["model"]["arch"], payload["aabb"],
                     tuple(payload["near_far"]), device=device,
-                    grid_size=tuple(payload["grid_size"]) or None)
-    weights.from_jax_state_dict(nmf, payload["state_dict"])
+                    grid_size=grid_size)
+    n_fields = len({k.split("]")[0] for k in sd
+                    if k.startswith(".rf.fields[")})
+    if n_fields:
+        gen = torch.Generator().manual_seed(0)
+        nmf.rf = make_listrf([build_field(
+            gen, cfg["model"]["arch"].get("rf", {}),
+            np.array(payload["aabb"], np.float32), grid_size).to(device)
+            for _ in range(n_fields)])
+    weights.from_jax_state_dict(nmf, sd)
+    if n_fields:
+        nmf.sampler.update(nmf.rf, init=True)
     return nmf, cfg, payload.get("extra", {})

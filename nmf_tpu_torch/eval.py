@@ -7,6 +7,8 @@ ground-truth panorama; the eval budget tiers; PNG artifacts (the test
 image, its squared error, rgb|depth and one folder per map), ``mean.txt``,
 the per-image ``stats.yaml`` and the envmap as ``pano.png`` and
 ``pano.exr``. PNGs are written with zlib alone, EXRs by ``data/exr.py``.
+``streaming=True`` renders through ``render_streaming`` (rgb, acc and
+depth maps only; local-shading models).
 
 Not in this slice: LPIPS (its weights cannot be fetched here), videos, the
 HDR renders' ``.exr`` dumps (they come with ``hdr``, ROADMAP A.1) and
@@ -25,6 +27,7 @@ from .data.exr import write_exr, write_png
 from .data.resize import resize_linear
 from .ops.draws import Draws
 from .render import NMF, render
+from .render_streaming import render_streaming
 
 
 # test-time Monte Carlo budget tiers: the multiplier of the shading
@@ -76,10 +79,11 @@ def _device(nmf: NMF):
 
 @torch.no_grad()
 def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None,
-                        ndc_ray=False):
+                        ndc_ray=False, streaming=False):
     """Render (N, 6) numpy rays (NDC rays with ``ndc_ray``) on a white
     background in fixed-size chunks (the tail chunk padded with copies of
-    ray 0) -> {map: (N, ...) numpy}.
+    ray 0) -> {map: (N, ...) numpy}. ``streaming``: through
+    ``render_streaming``.
 
     Ray i goes into chunk i % n_chunks, as nmf_tpu interleaves them so that
     every chunk gets the image-average ray mix; outputs come back in the
@@ -105,9 +109,12 @@ def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None,
     outs = {}
     for i in range(n_chunks):
         r = torch.from_numpy(rays[i * chunk:(i + 1) * chunk]).to(dev)
-        ims, _ = render(nmf, r, is_train=False, draw_debug=True,
-                        draws=draws.scoped(f"chunk{i}"), bg_cache=bg_cache,
-                        ndc_ray=ndc_ray)
+        if streaming:
+            ims, _ = render_streaming(nmf, r)
+        else:
+            ims, _ = render(nmf, r, is_train=False, draw_debug=True,
+                            draws=draws.scoped(f"chunk{i}"),
+                            bg_cache=bg_cache, ndc_ray=ndc_ray)
         for k, v in ims.items():
             outs.setdefault(k, []).append(v)
     out = {k: torch.cat(v)[:N].cpu().numpy() for k, v in outs.items()}
@@ -116,10 +123,11 @@ def render_rays_chunked(nmf: NMF, rays, chunk=4096, draws=None,
     return out
 
 
-def render_image(nmf: NMF, rays, hw, chunk=4096, draws=None, ndc_ray=False):
+def render_image(nmf: NMF, rays, hw, chunk=4096, draws=None, ndc_ray=False,
+                 streaming=False):
     H, W = hw
     maps = render_rays_chunked(nmf, rays, chunk=chunk, draws=draws,
-                               ndc_ray=ndc_ray)
+                               ndc_ray=ndc_ray, streaming=streaming)
     return {k: v.reshape(H, W, *v.shape[1:]) for k, v in maps.items()}
 
 
@@ -212,13 +220,15 @@ def _save_maps(save_dir, name, maps, pred, gt, near_far):
     if "roughness" in maps:
         write_png(d / "roughness" / name, maps["roughness"][..., 0])
     write_png(d / "acc_map" / name, maps["acc_map"])
-    write_png(d / "surf_width" / name,
-              np.clip(maps["surf_width"] / 64.0, 0, 1))
+    if "surf_width" in maps:
+        write_png(d / "surf_width" / name,
+                  np.clip(maps["surf_width"] / 64.0, 0, 1))
 
 
 def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
              n_vis: int = -1, seed: int = 0, prefix: str = "",
-             compute_extra_metrics: bool = True, gt_bg=None):
+             compute_extra_metrics: bool = True, gt_bg=None,
+             streaming: bool = False):
     """Render views of ``dataset`` in chunks of ``nmf.eval_batch_size``
     rays and return the means of psnr, ssim (``compute_extra_metrics``)
     and, where the dataset has them, norm_err and tint_psnr, plus the
@@ -226,7 +236,9 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
     {prefix}{i:03d}.png, one folder of PNGs per map,
     stats{prefix}.yaml, mean.txt and the envmap as {prefix}pano.png and
     {prefix}pano.exr (FLOAT, ZIPS).
-    Random draws come from a generator seeded with ``seed``. As nmf_tpu's
+    ``streaming``: every view through ``render_streaming`` (no normal
+    maps). Random draws come from a generator seeded with ``seed``. As
+    nmf_tpu's
     eval does, it renders every ray through the world-ray march, also an
     LLFF scene's NDC rays, which training marches in NDC (ROADMAP C.5)."""
     chunk = nmf.eval_batch_size
@@ -245,13 +257,15 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
         if gt.shape[-1] == 4:
             gt = gt[..., :3] * gt[..., 3:] + (1 - gt[..., 3:])
         maps = render_image(nmf, dataset["all_rays"][px], (H, W), chunk=chunk,
-                            draws=draws.scoped(f"image{img_i}"))
+                            draws=draws.scoped(f"image{img_i}"),
+                            streaming=streaming)
         pred = np.clip(maps["rgb_map"], 0, 1)
         name = f"{prefix}{img_i:03d}.png"
         stats["psnr"].append(utils.rgb_psnr(pred, gt))
         if compute_extra_metrics:
             stats["ssim"].append(utils.rgb_ssim(pred, gt, 1.0))
-        if dataset.get("all_norms") is not None:
+        if (dataset.get("all_norms") is not None
+                and "world_normal" in maps):
             gt_n = dataset["all_norms"][px].reshape(H, W, 3)
             err, err_map = normal_error_deg(maps["world_normal"], gt_n)
             if err is not None:

@@ -155,14 +155,19 @@ class HashGridRF(nn.Module):
         return F.relu(feat + self.density_shift)
 
     # ---- queries ----
-    def compute_densityfeature(self, xyz, use_gather_dtype=False):
+    def compute_densityfeature(self, xyz, use_gather_dtype=False,
+                               activate=True):
         """World xyz (N, 3/4) -> density (N,). The tables are f32:
         ``use_gather_dtype`` changes nothing."""
         feat = self.encoding(self._unit(xyz[..., :3]))
-        return self.feature2density(self.density_mlp(feat)[..., 0])
+        sig = self.density_mlp(feat)[..., 0]
+        return self.feature2density(sig) if activate else sig
 
     def compute_appfeature(self, xyz):
         return self.app_mlp(self.encoding(self._unit(xyz[..., :3])))
+
+    def compute_normals(self, xyz):
+        return self.compute_all(xyz, with_normals=True)[2]
 
     def compute_all(self, xyz, with_normals=False):
         """(density, app_features, normals or None) from one encoding of

@@ -23,8 +23,17 @@ gradient is exactly zero.
 that the queries gather (``ops/grid_sample.py``) are derived from the
 parameters at every query, so they follow the new sizes.
 
-Not ported yet: ``compute_normals`` on its own, autodiff normals
-(``numer_grad=False``) and ``dbasis``.
+The options of nmf_tpu's field: the init modes ``rand``, ``trig``,
+``unif``, ``unifplane``, ``randplane``; the activations softplus, relu,
+exp (``trunc_exp``) and identity; ``dbasis`` (the density features
+contracted by the (3 * n_comp, 1) ``dbasis_mat`` instead of summed);
+``contract_space`` and ``numer_grad=False``. Without the smoothed normals
+(``numer_grad=False``, or ``dbasis``) ``compute_all`` with normals
+answers as nmf_tpu's renderer queries such a field: the density in the
+gather dtype, the appearance and the normals each on their own in f32;
+the normals are then autograd normals through the quad gather (the
+gradient with respect to the points, kept as a graph in training), and
+``dbasis`` with the smoothed normals raises, as in nmf_tpu.
 """
 import math
 
@@ -37,7 +46,8 @@ from ..ops.grid_sample import (conv1d_same, conv2d_same, line_interp,
                                quad_gather_2d, resize_align_corners_1d,
                                resize_align_corners_2d,
                                smoothed_derivative_kernels_2d)
-from ..ops.safemath import normalize
+from ..ops.safemath import normalize, trunc_exp
+from ..samplers.alphagrid import linspace_f32
 from ..utils import n_to_reso
 
 # plane i holds axes MAT_MODE[i]; line i holds axis VEC_MODE[i]
@@ -105,18 +115,55 @@ class FactorGrid(nn.Module):
         return feats
 
 
+def _trig_factors(grid_size: int, n_comp: int, init_val: float):
+    """The 'trig' mode's plane (2 (n_comp // 2), G, G) and line, as
+    nmf_tpu computes them in f32: sines and cosines of frequencies 0, 1,
+    2, 4, ... of x + y (planes) and x, scaled by init_val * exp(-freq)."""
+    pos = linspace_f32(-1.0, 1.0, grid_size, "cpu")
+    xy = pos[:, None] + pos[None, :]
+    freqs = torch.cat([torch.zeros(1), 2.0 ** torch.arange(
+        n_comp // 2 - 1, dtype=torch.float32)])
+    scales = init_val * torch.exp(-freqs)
+    ang_p = freqs[:, None, None] * xy[None] * math.pi
+    ang_l = freqs[:, None] * pos[None] * math.pi
+    plane = torch.cat([scales[:, None, None] * torch.sin(ang_p),
+                       scales[:, None, None] * torch.cos(ang_p)])
+    line = torch.cat([scales[:, None] * torch.sin(ang_l),
+                      scales[:, None] * torch.cos(ang_l)])
+    return plane, line
+
+
 def init_factor_grid(generator, grid_size: int, n_comp: int, init_mode: str,
                      init_val: float):
-    """Initial planes N(0, init_val^2) (C, G, G) and lines (C, G): the
-    'rand' mode of nmf_tpu's ``init_factor_grid``, the one every shipped
-    config uses."""
-    if init_mode != "rand":
-        raise NotImplementedError(f"field.init_mode={init_mode!r} is not "
-                                  "ported yet (only 'rand')")
-    planes = [init_val * torch.randn((n_comp, grid_size, grid_size),
-                                     generator=generator) for _ in range(3)]
-    lines = [init_val * torch.randn((n_comp, grid_size), generator=generator)
-             for _ in range(3)]
+    """Initial planes (C, G, G) and lines (C, G) of nmf_tpu's
+    ``init_factor_grid`` modes: 'rand' N(0, init_val^2) (every shipped
+    config), 'unif' U(-1, 1) sqrt(init_val), 'unifplane' / 'randplane'
+    uniform / normal planes with constant lines sqrt(init_val), 'trig'
+    deterministic. The three planes are drawn before the three lines."""
+    G = (n_comp, grid_size, grid_size)
+    L = (n_comp, grid_size)
+    root = init_val ** 0.5
+
+    def unif(shape):
+        return root * (2 * torch.rand(shape, generator=generator) - 1)
+
+    if init_mode == "trig":
+        plane, line = _trig_factors(grid_size, n_comp, init_val)
+        return FactorGrid([plane.clone() for _ in range(3)],
+                          [line.clone() for _ in range(3)])
+    if init_mode == "unif":
+        planes = [unif(G) for _ in range(3)]
+        lines = [unif(L) for _ in range(3)]
+    elif init_mode in ("unifplane", "randplane"):
+        planes = [unif(G) if init_mode == "unifplane" else
+                  root * torch.randn(G, generator=generator)
+                  for _ in range(3)]
+        lines = [root * torch.ones(L) for _ in range(3)]
+    else:
+        planes = [init_val * torch.randn(G, generator=generator)
+                  for _ in range(3)]
+        lines = [init_val * torch.randn(L, generator=generator)
+                 for _ in range(3)]
     return FactorGrid(planes, lines)
 
 
@@ -159,22 +206,26 @@ class TensorVMSplit(nn.Module):
                  density_shift=-4.0, distance_scale=25.0, step_ratio=0.5,
                  gather_dtype="bf16", n_voxel_list=(), upsamp_list=(),
                  lr=0.02, lr_net=1e-3, smoothing=1.0, numer_grad=True,
-                 live_reso=None):
+                 dbasis=False, contract_space=False, num_pretrain=0,
+                 calibrate=False, live_reso=None):
         super().__init__()
-        if not numer_grad:
-            raise NotImplementedError("field.numer_grad=false (autodiff "
-                                      "normals) is not ported yet")
         self.smoothing = float(smoothing)
+        self.numer_grad = bool(numer_grad)
+        self.dbasis = bool(dbasis)
+        self.contract_space = bool(contract_space)
+        # read by train.pretrain_density
+        self.num_pretrain = int(num_pretrain or 0)
+        self.calibrate = bool(calibrate)
         self.density_rf = density_rf
         self.app_rf = app_rf
         self.basis_mat = nn.Parameter(basis_mat)
-        self.dbasis_mat = nn.Parameter(dbasis_mat)  # unused: dbasis=False
+        self.dbasis_mat = nn.Parameter(dbasis_mat)
         self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32))
         self.grid_size = tuple(int(g) for g in grid_size)
         self.app_dim = app_dim
-        if activation != "softplus":
-            raise NotImplementedError(f"field.activation={activation!r} is "
-                                      "not ported yet (only softplus)")
+        if activation not in ("softplus", "relu", "exp", "identity"):
+            raise ValueError(f"Unknown activation {activation}")
+        self.activation = activation
         self.density_shift = float(density_shift)
         self.distance_scale = float(distance_scale)
         self.step_ratio = float(step_ratio)
@@ -225,6 +276,11 @@ class TensorVMSplit(nn.Module):
             return tuple(self.grid_size)
         return tuple(int(v) for v in self.live_reso.tolist())
 
+    @property
+    def fused_normals_ok(self) -> bool:
+        """compute_all fuses only the smoothed normals without dbasis."""
+        return self.numer_grad and not self.dbasis
+
     def live_step_scale(self) -> float:
         """stepsize at the live resolution over stepsize at grid_size."""
         if not self.fixed_shape:
@@ -237,26 +293,44 @@ class TensorVMSplit(nn.Module):
     # ---- queries ----
     def normalize_coord(self, xyz):
         """World xyz (..., 3 or 4; a trailing 4th channel passes through)
-        -> normalized [-1, 1]."""
+        -> normalized [-1, 1]. With ``contract_space``, nmf_tpu contracts
+        the WORLD position (norm d: d / 2 inside the unit ball, (1 + (d -
+        1) / 4) / 2 outside) and ignores the box; the port does the same."""
+        if self.contract_space:
+            dist = torch.linalg.norm(xyz[..., :3], dim=-1, keepdim=True) + 1e-8
+            contracted = torch.where(dist > 1, (dist - 1) / 4 + 1, dist) / 2
+            return torch.cat([contracted * (xyz[..., :3] / dist),
+                              xyz[..., 3:]], dim=-1)
         aabb_size = self.aabb[1] - self.aabb[0]
         coords = (xyz[..., :3] - self.aabb[0]) * (2.0 / aabb_size) - 1
         return torch.cat([coords, xyz[..., 3:]], dim=-1)
 
     def feature2density(self, feat):
-        return F.softplus(torch.clamp(feat, -15, 1e3) + self.density_shift)
+        if self.activation == "softplus":
+            return F.softplus(torch.clamp(feat, -15, 1e3) + self.density_shift)
+        if self.activation == "relu":
+            return F.relu(feat + self.density_shift)
+        if self.activation == "exp":
+            return trunc_exp(feat + self.density_shift)
+        return feat
 
-    @staticmethod
-    def _contract_density(feats):
+    def _contract_density(self, feats):
+        """The density feature: the factor products summed, or with
+        ``dbasis`` contracted by ``dbasis_mat``."""
+        if self.dbasis:
+            return (torch.cat(feats, dim=-1) @ self.dbasis_mat)[..., 0]
         return sum(f.sum(dim=-1) for f in feats)
 
-    def compute_densityfeature(self, xyz, use_gather_dtype=False):
+    def compute_densityfeature(self, xyz, use_gather_dtype=False,
+                               activate=True):
         """World xyz (..., 3/4) -> density (...), gathered in f32, or in
         the gather dtype with ``use_gather_dtype`` (the proposal pass: the
         same values compute_all gives)."""
         coords = self.normalize_coord(xyz)[..., :3]
         gd = GATHER_DTYPES[self.gather_dtype] if use_gather_dtype else None
-        return self.feature2density(self._contract_density(
-            self.density_rf.query(coords, gd, self._live3())))
+        sig = self._contract_density(self.density_rf.query(
+            coords, gd, self._live3()))
+        return self.feature2density(sig) if activate else sig
 
     def compute_appfeature(self, xyz):
         coords = self.normalize_coord(xyz)[..., :3]
@@ -270,15 +344,43 @@ class TensorVMSplit(nn.Module):
         return kx, ky, np.array([-0.5, 0.0, 0.5])
 
     def compute_all(self, xyz, with_normals=False):
-        """(density, app_features, normals or None) from ONE gathered row
-        per factor: the density and appearance tables (and, with normals,
-        the density planes filtered by the derivative kernels and the
-        differenced lines) are concatenated channel-wise. The normals are
-        normalize(-grad), the smoothed gradient of the density feature."""
+        """(density, app_features, normals or None). Fused, from ONE
+        gathered row per factor in the gather dtype: the density and
+        appearance tables (and, with normals, the density planes filtered
+        by the derivative kernels and the differenced lines) concatenated
+        channel-wise; the normals are normalize(-grad), the smoothed
+        gradient of the density feature. Normals without the smoothed
+        path (``fused_normals_ok`` False) take one query each."""
+        if with_normals and not self.fused_normals_ok:
+            return (self.compute_densityfeature(xyz, use_gather_dtype=True),
+                    self.compute_appfeature(xyz), self.compute_normals(xyz))
+        return self._fused(xyz, GATHER_DTYPES[self.gather_dtype],
+                           with_normals)
+
+    def compute_normals(self, xyz):
+        """World-space normals normalize(-grad density feature): the
+        smoothed gradient in f32, or (``numer_grad=False``) autograd
+        through the quad gather in f32, with a graph when gradients are
+        on."""
+        if not self.numer_grad:
+            pts = xyz[..., :3]
+            graph = torch.is_grad_enabled()
+            if not pts.requires_grad:
+                pts = pts.detach().requires_grad_(True)
+            with torch.enable_grad():
+                raw = self.compute_densityfeature(pts, activate=False)
+                (g,) = torch.autograd.grad(raw.sum(), pts, create_graph=graph)
+            return normalize(-g)
+        if self.dbasis:
+            raise NotImplementedError(
+                "dbasis=True with smoothed normals is not used by shipped "
+                "configs (nmf_tpu raises too)")
+        return self._fused(xyz, torch.float32, True)[2]
+
+    def _fused(self, xyz, gd, with_normals):
         coords = self.normalize_coord(xyz)[..., :3]
         d_rf, a_rf = self.density_rf, self.app_rf
         Cd, Ca = d_rf.n_comp, a_rf.n_comp
-        gd = GATHER_DTYPES[self.gather_dtype]
         if with_normals:
             kx, ky, k1 = self._dkernels()
         live = self._live3()
@@ -308,7 +410,7 @@ class TensorVMSplit(nn.Module):
         app = torch.cat(a_feats, dim=-1) @ self.basis_mat
         if not with_normals:
             return sigma, app, None
-        g = torch.stack([self._contract_density(dgrads[j])
+        g = torch.stack([sum(f.sum(dim=-1) for f in dgrads[j])
                          for j in range(3)], dim=-1)
         return sigma, app, normalize(-g)
 

@@ -1,8 +1,9 @@
 """Plain TensoRF shading (``nmf_tpu/models/tensorf.py``): one
-view-dependent colour head, no normals."""
+view-dependent colour head (MLPRender_Fea, or MLPRender_PE with
+``head="pe"``), no normals."""
 import torch.nn as nn
 
-from ..modules.render_modules import MLPRenderFea
+from ..modules.render_modules import MLPRenderFea, MLPRenderPE
 
 
 class TensoRFShade(nn.Module):
@@ -21,11 +22,12 @@ class TensoRFShade(nn.Module):
         return self.diffuse_module(xyz_normed, viewdirs, app_features), {}
 
 
-def init_tensorf_shade(app_dim, viewpe=6, feape=6, featureC=128, lr=1e-3,
-                       head="fea", generator=None, **_):
-    if head != "fea":
-        raise NotImplementedError(
-            "the MLPRender_PE head is not ported yet (only MLPRender_Fea)")
+def init_tensorf_shade(app_dim, viewpe=6, feape=6, pospe=6, featureC=128,
+                       lr=1e-3, head="fea", generator=None, **_):
+    if head == "pe":
+        return TensoRFShade(MLPRenderPE(app_dim, viewpe=viewpe, pospe=pospe,
+                                        featureC=featureC, lr=lr,
+                                        generator=generator))
     return TensoRFShade(MLPRenderFea(app_dim, viewpe=viewpe, feape=feape,
                                      featureC=featureC, lr=lr,
                                      generator=generator))

@@ -1,6 +1,6 @@
 """Appearance, material and normal heads
-(``nmf_tpu/modules/render_modules.py``): ``PE``, ``MLPRenderFea``
-(tensorf), ``RandHydraMLPDiffuse`` (microfacet), and the predicted-normal
+(``nmf_tpu/modules/render_modules.py``): ``PE``, ``MLPRenderFea`` and
+``MLPRenderPE`` (tensorf), ``RandHydraMLPDiffuse`` (microfacet), and the predicted-normal
 heads ``MLPNormal`` and ``AppDimNormal``."""
 import math
 
@@ -47,6 +47,33 @@ class MLPRenderFea(nn.Module):
         indata = [features, viewdirs]
         if self.feape > 0:
             indata.append(positional_encoding(features, self.feape))
+        if self.viewpe > 0:
+            indata.append(positional_encoding(viewdirs, self.viewpe))
+        return torch.sigmoid(self.mlp(torch.cat(indata, dim=-1)))
+
+
+class MLPRenderPE(nn.Module):
+    """View-dependent colour head of the sample position (MLPRender_PE):
+    sigmoid of a 3-layer MLP of [features, viewdirs, position,
+    PE(position), PE(viewdirs)]; the last bias starts at zero. nmf_tpu
+    feeds the raw position that the reference sizes its MLP for but
+    forgets to concatenate; so does the port."""
+
+    def __init__(self, in_channels, viewpe=6, pospe=6, featureC=128,
+                 lr=1e-3, generator=None):
+        super().__init__()
+        self.viewpe = viewpe
+        self.pospe = pospe
+        self.lr = float(lr)
+        in_mlpC = (3 + 2 * viewpe * 3) + (3 + 2 * pospe * 3) + in_channels
+        self.mlp = MLP(in_mlpC, 3, num_layers=3, hidden_w=featureC,
+                       generator=generator)
+        nn.init.zeros_(self.mlp.layers[-1].bias)
+
+    def forward(self, pts, viewdirs, features):
+        indata = [features, viewdirs, pts[..., :3]]
+        if self.pospe > 0:
+            indata.append(positional_encoding(pts[..., :3], self.pospe))
         if self.viewpe > 0:
             indata.append(positional_encoding(viewdirs, self.viewpe))
         return torch.sigmoid(self.mlp(torch.cat(indata, dim=-1)))

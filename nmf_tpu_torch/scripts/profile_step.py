@@ -16,7 +16,10 @@ tensorf (the occupancy grid): chip_smoke.py's occgrid cut, an upsample at
 left: a few voxels off a face in some runs, the whole box in others).
 model=refnerf: the flagship's schedule; windows at 150 and 450.
 model=refnerf_tcnn (on field=hashgrid): chip_smoke.py's hash-grid cut
-(geonorm_interp_iters 400); windows at 150 and 450. For each window it
+(geonorm_interp_iters 400); windows at 150 and 450. A field override
+takes the model's schedule: model=microfacet_tensorf2 field=grid (the
+dense voxel field, which never upsamples: chip_smoke.py's grid path)
+profiles its windows at 150 and 450 on the 128^3 table. For each window it
 prints the step time (CUDA events, profiler off), the device-busy share of
 the profiled window, and the kernels ranked by device time per step,
 grouped into classes (composite K1 and K2 and binsum K3 apart). Needs a
@@ -172,7 +175,9 @@ def main(argv=None):
             thin = "".join(f", {k} {float(metrics[k]):.3f}" for k in
                            ("thin_scale", "thin_scale_retrace")
                            if k in metrics)
-            report(f"{model} iteration {it}, grid {grid}, batch "
+            field = cfg["model"]["arch"]["rf"].get("_target_", "")
+            report(f"{model} ({field.split('.')[-1]}) iteration {it}, "
+                   f"grid {grid}, batch "
                    f"{batch.size}, N={nmf.sampler.n_samples} "
                    f"K={nmf.max_samples_per_ray}, {valid:.1f} valid "
                    f"samples/ray{thin}", *profile_window(step, args.steps))

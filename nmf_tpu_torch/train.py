@@ -5,8 +5,9 @@
         dataset=synthetic_sphere model.params.n_iters=3000 expname=run1 \
         [device=cpu]
 
-Host loop: the microfacet model's bias calibration against the envmap
-brightness, batching (with the adaptive batch controller when the config
+Host loop: the field's density pretraining or calibration
+(``field.num_pretrain``, ``field.calibrate``), the microfacet model's bias
+calibration against the envmap brightness, batching (with the adaptive batch controller when the config
 sets ``target_num_samples``), the train step, progress lines (psnr, loss,
 rays/s, the bounce-ray thinning factors) also written to the run folder's
 ``metrics.jsonl``, schedule events (voxel upsample, alpha-mask rebuild,
@@ -18,9 +19,11 @@ batch reset, ``vis_every`` evals, checkpoints (``save_every`` writes
 final test evaluation at the ``eval_tier`` budgets. ``stop_iter`` pauses
 the run with a ``_latest.th``; ``resume=True`` continues from it, and
 ``ckpt=`` starts from a checkpoint. ``render_only=True ckpt=...``
-evaluates a checkpoint instead of training. An LLFF scene whose yaml
-sets ``ndc_ray`` trains and evaluates on NDC rays. Runs on ``cuda``
-unless the config says ``device=cpu``.
+evaluates a checkpoint instead of training, through the streaming
+renderer with ``stream=true`` (which, as in nmf_tpu, the final eval of a
+training run does not read). An LLFF scene whose yaml sets ``ndc_ray``
+trains and evaluates on NDC rays. Runs on ``cuda`` unless the config
+says ``device=cpu``.
 
 Random streams: the march jitter and the shading model's draws come from
 one ``torch.Generator`` on the device, the ray batches and the background
@@ -35,9 +38,9 @@ The envmap metrics compare against the ``gt_bg`` panorama: a top-level
 ``<datadir>/backgrounds/``, read with ``data.exr.imread_any``; else the
 procedural scene's own.
 
-Not ported yet: ``render_path``, ``fixed_bg`` relighting (it reads a
-pickled flax pytree) and streaming render raise ``NotImplementedError``,
-and so do the parameters of the
+Not ported yet: ``render_path`` and ``fixed_bg`` relighting (it reads a
+pickled flax pytree) raise ``NotImplementedError``, and so do the
+parameters of the
 bounce-budget controller (``adapt_brdf_budget``) and of the ori/pred
 decays; the port runs on one card (no device mesh) and has no multirun.
 """
@@ -95,6 +98,60 @@ def make_loss_weights(params, l1_rest=False, tv_mult=1.0):
         envmap_lambda=params.get("envmap_lambda", 0.0),
         diffuse_lambda=params.get("diffuse_lambda", 0.0),
         brdf_lambda=params.get("brdf_lambda", 0.0))
+
+
+def _box_points(rf, draws, n=20000):
+    """n points uniform in [-1, 1]^3 scaled by the box's upper corner
+    (nmf_tpu's draw, which assumes a symmetric box), footprint 0."""
+    dev = rf.aabb.device
+    xyz3 = (draws.uniform("xyz", (n, 3), dev) * 2 - 1) * rf.aabb[1]
+    return torch.cat([xyz3, xyz3.new_zeros((n, 1))], -1)
+
+
+def pretrain_density(nmf, draws, start_density: float, log=print):
+    """The field's startup density (nmf_tpu's ``pretrain_density``):
+    ``field.num_pretrain`` iterations of Adam (lr 5e-3, betas 0.9 / 0.99)
+    on the density factors (``density_rf``, ``dbasis_mat``) fitting the
+    alpha at the sampler's step of 20,000 box points to ``start_density``
+    with 10% normal noise (draws ``{i}/xyz``, ``{i}/noise``); or, with
+    ``field.calibrate`` and no pretraining, the ``density_shift`` that
+    brings the mean density of 20,000 box points (``calibrate/xyz``) to
+    the one whose alpha is ``start_density``. Fields without these knobs
+    are left alone."""
+    rf = nmf.rf
+    stepsize = float(nmf.sampler.live_stepsize)
+    n = int(getattr(rf, "num_pretrain", 0) or 0)
+    ds = rf.distance_scale
+    if n <= 0 or not hasattr(rf, "density_rf"):
+        if getattr(rf, "calibrate", False):
+            with torch.no_grad():
+                sigma = rf.compute_densityfeature(
+                    _box_points(rf, draws.scoped("calibrate")))
+            target = -math.log(1 - start_density) / (stepsize * ds)
+            rf.density_shift = float(rf.density_shift) + (
+                math.log(target) - math.log(max(float(sigma.mean()), 1e-12)))
+            log(f"density_shift calibrated -> {rf.density_shift:.3f}")
+        return
+    params = [*rf.density_rf.parameters(), rf.dbasis_mat]
+    m = [torch.zeros_like(p) for p in params]
+    v = [torch.zeros_like(p) for p in params]
+    alpha_mean = 0.0
+    for i in range(n):
+        d = draws.scoped(f"{i}")
+        with torch.enable_grad():
+            sigma = rf.compute_densityfeature(_box_points(rf, d))
+            alpha = 1 - torch.exp(-sigma * stepsize * ds)
+            target = start_density * (
+                1 + 0.1 * d.normal("noise", alpha.shape, alpha.device))
+            loss = (alpha - target).abs().mean()
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        alpha_mean = alpha.detach().mean()
+        for p, g, mi, vi in zip(params, grads, m, v):
+            # optax.adam(5e-3, 0.9, 0.99)
+            trainer.adam_step(p, torch.zeros_like(p) if g is None else g,
+                              mi, vi, i + 1, 5e-3, -1.0, 0.9, 0.99, 1e-8)
+    log(f"pretrain density: mean alpha {float(alpha_mean):.6f} "
+        f"after {n} iters (target {start_density})")
 
 
 @torch.no_grad()
@@ -174,9 +231,7 @@ def check_unported(cfg):
                             "later slice (ROADMAP A.2)"),
             ("fixed_bg", "fixed_bg relighting reads a format-1 checkpoint "
                          "(a pickled flax pytree that needs JAX); it comes "
-                         "with scripts/pano2env.py (ROADMAP A.4)"),
-            ("stream", "streaming render (render_streaming.py) comes with "
-                       "a later slice (ROADMAP A.2)")):
+                         "with scripts/pano2env.py (ROADMAP A.4)")):
         if cfg.get(key):
             raise NotImplementedError(f"{key}={cfg[key]!r}: {why}")
 
@@ -240,9 +295,12 @@ def reconstruction(cfg, log=print):
         log(f"resume: {latest_path} at iter {start_iter}")
     elif cfg.get("ckpt"):
         nmf, _, _ = ckpt_lib.load(cfg["ckpt"], device)
-    nmf.sampler.update(nmf.rf, init=True)
     run_seed = stream_seed(seed, start_iter)
     draws = Draws(torch.Generator(device=device).manual_seed(run_seed))
+    if start_iter == 0 and not cfg.get("ckpt"):
+        pretrain_density(nmf, draws.scoped("pretrain"),
+                         float(params.get("start_density", 5e-3)), log=log)
+    nmf.sampler.update(nmf.rf, init=True)
     if start_iter == 0:
         calibrate_model(nmf, draws.scoped("calibrate"))
 
@@ -368,7 +426,8 @@ def reconstruction(cfg, log=print):
 def render_test(cfg, log=print):
     """Evaluate the checkpoint ``ckpt`` on the test split (the final eval's
     view count, seed and ``eval_tier``) and, with ``render_train``, on the
-    train split. Returns (nmf, test metrics)."""
+    train split; through the streaming renderer with ``stream``. Returns
+    (nmf, test metrics)."""
     if not cfg.get("ckpt"):
         raise SystemExit(
             "render_only=True requires ckpt=<path to a .th checkpoint>")
@@ -381,17 +440,19 @@ def render_test(cfg, log=print):
     test_ds = load_dataset(cfg["dataset"], datadir, split="test")
     logfolder = Path(cfg.get("basedir", "./log")) / _expname(cfg)
     seed = int(cfg.get("seed", 20211200))
+    streaming = bool(cfg.get("stream", False))
     with eval_lib.apply_eval_tier(nmf, tier):
         res = eval_lib.evaluate(nmf, test_ds,
                                 save_dir=str(logfolder / "imgs_render"),
                                 n_vis=_final_n_vis(cfg), seed=seed,
-                                gt_bg=_resolve_gt_bg(cfg, datadir, test_ds))
+                                gt_bg=_resolve_gt_bg(cfg, datadir, test_ds),
+                                streaming=streaming)
         log(f"render_test: {res}")
         if cfg.get("render_train", False):
             train_ds = load_dataset(cfg["dataset"], datadir, split="train")
             res_tr = eval_lib.evaluate(
                 nmf, train_ds, save_dir=str(logfolder / "imgs_train_all"),
-                n_vis=cfg.get("N_vis", -1), seed=seed)
+                n_vis=cfg.get("N_vis", -1), seed=seed, streaming=streaming)
             log(f"train-split eval: {res_tr}")
     return nmf, res
 

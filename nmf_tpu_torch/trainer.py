@@ -21,7 +21,7 @@ from .render import NMF, render
 def label_for_path(s: str) -> str:
     """Optimizer group of a parameter path ("rf/density_rf/planes/0")."""
     if s.startswith(("rf/density_rf", "rf/app_rf", "rf/encoding",
-                     "rf/density_grid", "rf/app_grid")):
+                     "rf/density_grid", "rf/app_grid", "rf/grid_rows")):
         return "rf_grid"
     if s.startswith(("rf/basis_mat", "rf/dbasis_mat", "rf/density_mlp",
                      "rf/app_mlp")):
@@ -122,6 +122,22 @@ def differentiated_tensors(nmf: NMF):
     return out
 
 
+@torch.no_grad()
+def adam_step(t, g, m, v, count, lr, step_size, b1, b2, eps):
+    """One optax.adam update of ``t`` in place: the moments ``m``, ``v``
+    take the gradient ``g``, then ``t += (update * lr) * step_size``,
+    skipped at lr 0 (a frozen tensor's moments still move). ``count`` is
+    1-based; the bias corrections are taken in f32, as optax's."""
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * (g * g))
+    if lr == 0.0:
+        return
+    bc1 = 1 - np.float32(b1) ** np.float32(count)
+    bc2 = 1 - np.float32(b2) ** np.float32(count)
+    upd = (m / float(bc1)) / (torch.sqrt(v / float(bc2)) + eps)
+    t.add_((upd * lr) * step_size)
+
+
 class Optimizer:
     """Clip by global norm, Adam, per-group lr, schedule.
 
@@ -173,16 +189,9 @@ class Optimizer:
             grads = [torch.where(keep, g, (g / g_norm) * cfg.clip_grad)
                      for g in grads]
         count = self.count + 1
-        bc1 = 1 - np.float32(b1) ** np.float32(count)
-        bc2 = 1 - np.float32(b2) ** np.float32(count)
         step_size = -self.sched(self.count)
         for (t, lr), g, m, v in zip(self.entries, grads, self.m, self.v):
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * (g * g))
-            if lr == 0.0:
-                continue
-            upd = (m / float(bc1)) / (torch.sqrt(v / float(bc2)) + cfg.eps)
-            t.add_((upd * lr) * step_size)
+            adam_step(t, g, m, v, count, lr, step_size, b1, b2, cfg.eps)
         self.count = count
 
 

@@ -13,8 +13,9 @@ torch = pytest.importorskip("torch")
 from nmf_tpu_torch.ops import grid_sample as tgs  # noqa: E402
 from nmf_tpu_torch.ops.kernels import binsum as tbin  # noqa: E402
 from nmf_tpu_torch.ops.kernels import composite as tcomp  # noqa: E402
-from torch_inputs import (FLAGSHIP, OCCGRID, REFNERF_TCNN,  # noqa: E402
-                          binsum_case, composite_inputs, cotangents)
+from torch_inputs import (FLAGSHIP, GRID, OCCGRID,  # noqa: E402
+                          REFNERF_TCNN, binsum_case, composite_inputs,
+                          cotangents)
 
 
 @pytest.fixture
@@ -179,6 +180,48 @@ def test_tiny_microfacet_tensorf_step_on_card_matches_cpu(cuda, shrunk):
                 if shrunk else None))
     if shrunk:
         assert tuple(grads[0].shape[1:]) != (16, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [GRID, ["field.numer_grad=false"]],
+                         ids=["grid", "autograd_normals"])
+def test_tiny_flagship_field_variants_on_card_match_cpu(cuda, extra):
+    """The tiny flagship on the dense voxel field (the table's gradient
+    through K3) and with autograd normals through the quad gather: the
+    loss, the image and every gradient, card against CPU."""
+    base = GRID if extra is GRID else FLAGSHIP
+    _flagship_step_card_vs_cpu(cuda, [] if extra is GRID else extra,
+                               base=base)
+
+
+@pytest.mark.cuda
+def test_streaming_render_on_card_matches_cpu(cuda):
+    """A streaming render of a tiny model=tensorf with the MLPRender_PE
+    head: each block composited by K1 in full mode on the card, against
+    the plain version on the CPU."""
+    from nmf_tpu_torch import config
+    from nmf_tpu_torch.builders import build_nmf
+    from nmf_tpu_torch.data import load_dataset
+    from nmf_tpu_torch.render_streaming import render_streaming
+
+    cfg = config.compose([
+        "model=tensorf", "dataset=synthetic_sphere", "dataset.image_size=16",
+        "field.N_voxel_init=4096", "field.gather_dtype=f32",
+        "field.density_shift=-1", "model.arch.model.diffuse_module._target_="
+        "modules.render_modules.MLPRender_PE"])
+    ds = load_dataset(cfg["dataset"], None, "test")
+    outs = []
+    before = tcomp.COMPOSITE_FWD.launches
+    for dev in (cuda, torch.device("cpu")):
+        nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
+                        tuple(cfg["dataset"]["near_far"]), seed=0,
+                        device=dev)
+        ims, stats = render_streaming(
+            nmf, torch.from_numpy(ds["all_rays"][:256]).to(dev), block=16)
+        outs.append([ims[k].cpu() for k in ("rgb_map", "acc_map", "depth")])
+    assert tcomp.COMPOSITE_FWD.launches - before == stats["blocks"] > 0
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 def _march_rays(march, n=64, seed=5):

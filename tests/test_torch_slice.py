@@ -194,13 +194,31 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+@pytest.mark.parametrize("target", [
+    ["field=grid", "field.grid_size=[8,8,8]"],
+    ["model=tensorf", "model.arch.model.diffuse_module._target_="
+     "modules.render_modules.MLPRender_PE"]], ids=["grid", "MLPRender_PE"])
+def test_ported_targets_build(target):
+    """The dense voxel field and the MLPRender_PE head build, with
+    nmf_tpu's parameter keys and shapes."""
+    cfg = ttrain.config_lib.compose(["model=tensorf",
+                                     "field.N_voxel_init=4096", *target])
+    jsd = jckpt.state_dict(jbuild(jax.random.PRNGKey(0),
+                                  cfg["model"]["arch"], AABB, NEAR_FAR))
+    tsd = weights.to_jax_state_dict(tbuild(cfg["model"]["arch"], AABB,
+                                           NEAR_FAR, device="cpu"))
+    assert sorted(tsd) == sorted(jsd)
+    for k, v in jsd.items():
+        assert tsd[k].shape == v.shape, k
+
+
 def test_unported_targets_raise():
-    for ov in (["field=grid"], [
-            "model=tensorf", "model.arch.model.diffuse_module._target_="
-            "modules.render_modules.MLPRender_PE"]):
-        cfg = ttrain.config_lib.compose(ov)
-        with pytest.raises(NotImplementedError):
-            tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+    # nmf_tpu's other brdf samplers come with a later slice
+    cfg = ttrain.config_lib.compose([
+        *FLAGSHIP, "model.arch.model.brdf_sampler._target_="
+        "brdf_samplers.cosine.CosineLobeSampler"])
+    with pytest.raises(NotImplementedError):
+        tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
     if not torch.cuda.is_available():
         cfg = ttrain.config_lib.compose(["model=tensorf"])
         with pytest.raises(RuntimeError):
@@ -222,8 +240,7 @@ def test_unported_flagship_knobs_raise(override):
         tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
 
 
-@pytest.mark.parametrize("override", [
-    "render_path=true", "fixed_bg=env.th", "stream=true"])
+@pytest.mark.parametrize("override", ["render_path=true", "fixed_bg=env.th"])
 @pytest.mark.parametrize("render_only", [False, True])
 def test_unported_run_knobs_raise(tmp_path, override, render_only):
     """The top-level knobs the port does not carry raise before any work,
@@ -246,6 +263,33 @@ TINY_TENSORF = [
     "model.arch.max_samples_per_ray=32",
     "model.arch.model.diffuse_module.featureC=16",
     "dataset.image_size=8", "dataset.n_views=2", "N_vis=1"]
+
+
+@pytest.mark.parametrize("render_only", [False, True])
+def test_stream_knob_runs(tmp_path, render_only):
+    """stream=true runs: in training, whose final eval does not read it
+    (as nmf_tpu's), and in render_only, which renders the checkpoint's
+    test views through render_streaming: its PSNR is that of evaluate's
+    streaming render of the same model."""
+    base = [*TINY_TENSORF, "dataset.image_size=16", f"basedir={tmp_path}",
+            "expname=s"]
+    nmf, res = ttrain.dispatch(ttrain.config_lib.compose(
+        [*base, "stream=true"] if not render_only else base))
+    assert np.isfinite(res["psnr"])
+    if not render_only:
+        assert (tmp_path / "synthetic_sphere_s" / "imgs_test_all" /
+                "surf_width").is_dir()
+        return
+    ckpt = tmp_path / "synthetic_sphere_s" / "synthetic_sphere_s.th"
+    cfg = ttrain.config_lib.compose([*base, "render_only=true",
+                                     f"ckpt={ckpt}", "stream=true"])
+    _, rendered = ttrain.dispatch(cfg)
+    test_ds = tload(cfg["dataset"], None, split="test")
+    direct = teval.evaluate(nmf, test_ds, n_vis=1, seed=cfg["seed"],
+                            streaming=True)
+    assert rendered["psnr"] == pytest.approx(direct["psnr"], abs=1e-4)
+    assert not (tmp_path / "synthetic_sphere_s" / "imgs_render" /
+                "surf_width").exists()
 
 
 def _pano(tmp_path, name, seed):

@@ -15,6 +15,11 @@ FLAGSHIP = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
             "model.arch.model.max_retrace_rays=[32]",
             "model.arch.bg_module.bg_resolution=32"]
 
+# the tiny flagship on the dense voxel field: a 16^3 grid (table rows of
+# 28 f32 columns)
+GRID = ["field=grid", "field.grid_size=[16,16,16]",
+        *(o for o in FLAGSHIP if not o.startswith("field."))]
+
 # the tiny occupancy-grid NMF (model=microfacet_tensorf): the flagship's
 # tiny widths and a 16^3 occupancy grid
 OCCGRID = ["model=microfacet_tensorf", *FLAGSHIP[1:],

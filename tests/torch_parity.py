@@ -53,13 +53,12 @@ def grads_match(tn, jgrads, rtol, loose=()):
     not differentiate must have an exactly zero one there); ``loose``:
     (key part, rtol) of tensors held to their own tolerance."""
     for key, g in jckpt.state_dict(jgrads).items():
-        t, transpose = weights.port_tensor(tn, key)
-        if t.grad is None:
+        tg = weights.port_grad(tn, key)
+        if tg is None:
             assert not np.any(g), key
             continue
-        tg = t.grad.numpy()
         tol = next((tl for k, tl in loose if k in key), rtol)
-        close(tg.T if transpose else tg, g, tol, key)
+        close(tg.numpy(), g, tol, key)
 
 
 def _u(key, shape):
