@@ -33,7 +33,11 @@
    contract_space) and the MLPRender_PE head, and for the tiny flagship
    on the grid field and with autograd normals; then an eval render of a
    ListRF of two tiny grid fields, 5 density pretraining iterations, the
-   field.calibrate solve and one streaming render, card against CPU.
+   field.calibrate solve and one streaming render, card against CPU; then
+   5 steps of pano2env's fit at resolution 16 (the first step's loss,
+   gradients and Adam moments), one render_path frame, two alternating
+   dual-scene steps (the loss, every gradient, the inactive envmap's
+   update) and collect_ray_debug of the tiny flagship, card against CPU.
 4. Main paths, at the shipped widths on synthetic_sphere: model=tensorf
    (128^3 grid, 16/24 components, app_dim 24, featureC 128, 4096 rays x
    192 samples) for 300 iterations through one upsample to 300^3 and two
@@ -42,15 +46,21 @@
    budgets [65536, 16384], 1024 retrace rays, batch 4096: the controller
    may move it within [4096, 8192] towards 200,000 valid samples a step,
    and at the ~72 valid samples a ray of this scene it stays at 4096) for
-   600 iterations through one upsample. Each evaluates the test views and
+   450 iterations through one upsample. Each evaluates the test views and
    fails unless the loss is finite, every kernel was launched on it and
-   the test PSNR > 17 dB.
+   the test PSNR > 17 dB. tensorf runs with log_rays=true: its final
+   eval's rays.pkl must hold one bundle of at most 512 rays with finite
+   weights (their K1 launch, 512 x the whole march, held after the path).
+   The flagship runs with render_path=true: the 60 orbit frames of 64^2
+   (radius 4 at -30 degrees, the sphere's camera ring) must average
+   > 17 dB against the analytic sphere on the same rays, and path.gif
+   must hold 60 frames.
 5. The studio path: model=microfacet_tensorf2 at the same widths on
    synthetic_studio (hemisphere cameras, 24 views of 128^2, generated on
    the host and timed) with the studio 8k arms' knobs: fixed-shape field
    (planes padded to 300^2 from step 0), lr_upsample_reset=false,
    distortion 1e-3, batch 4096. 1000 iterations paused by stop_iter at
-   750 and resumed from the _latest.th to the end, through the arms'
+   850 and resumed from the _latest.th to the end, through the arms'
    schedule scaled to 1000 iterations (seven upsamples to 300^3 and five
    mask rebuilds, one of each after the pause), the final checkpoint,
    the final eval
@@ -67,7 +77,7 @@
    equal to the panorama, the loader's seconds); then the trainer on
    dataset=lego with only datadir, near_far and stack_norms overridden and
    the studio knobs, resumed from the studio path's pause checkpoint at
-   750 and trained to 1000 on the same random streams, the final eval's
+   850 and trained to 1000 on the same random streams, the final eval's
    envmap metrics against the EXR and pano.exr written. Its test PSNR must
    clear 17 dB and land within 0.5 dB of the studio path's.
 7. The lego-size load: 100 train views of 800^2 RGBA (the sphere
@@ -75,7 +85,27 @@
    by the trainer with dataset=lego's yaml and put on the card (64M rays,
    2.56 GB); prints the load's seconds, traced host peak and the store's
    bytes; 20 full-width flagship steps from that store, finite loss.
-8. The occupancy-grid path: model=microfacet_tensorf (128^3 occupancy
+8. The relight path, on the studio path's final checkpoint: pano2env's fit
+   at its CLI defaults (1024 x 2048 texels, 1000 iterations of 65,536
+   pixels) of the Blender path's lego_bg.exr, mirrored left to right
+   (pano2env reads a panorama mirrored against the gt_bg convention,
+   ROADMAP C.9); K3 at the fit's size (N = 262,144, C = 12, R = 2,419,968)
+   held after the path and timed L2-cold beside zeros + index_add_. Then
+   render_only fixed_bg= the checkpoint's own envmap written as an envmap
+   file, which must reproduce the studio render_only within 0.1 dB, and
+   fixed_bg= the fit, whose envmap_psnr must beat the learned envmap's.
+9. The compose path: scripts/compose_scenes.py with the studio checkpoint
+   twice at x = -1 and +1, relit by the fit, 8 frames of 64^2: finite,
+   not blank, K1 launched.
+10. The dual-scene path: train_dualbg on two scenes of one object under two
+   lights (dataset=lego and its studio scene with the environment turned
+   by 180 degrees, written as nerf_synthetic/lego2 with lego2_bg.exr), the
+   flagship at its shipped widths with the studio knobs, 600 iterations
+   (the upsample at 300, the mask rebuild at 450); both test splits must
+   clear 17 dB, a dual checkpoint must be written (the port refuses to
+   reload it, as nmf_tpu cannot either), and each envmap's envmap_psnr
+   against its panorama is printed.
+11. The occupancy-grid path: model=microfacet_tensorf (128^3 occupancy
    grid, multiplier 2, the normal MLP) at its shipped widths on
    synthetic_sphere, 600 iterations through an upsample at 300 and a
    shrink tick at 400 (threshold 0.05); prints the occupied share after
@@ -85,42 +115,42 @@
    grid set to a block around the sphere, the 300^3 field shrunk to its
    bounds, written as a resume checkpoint, and 50 more steps resumed
    from it through the trainer and the test eval on the cropped field.
-9. The LLFF path: a forward-facing sphere scene in fern's layout and size
+12. The LLFF path: a forward-facing sphere scene in fern's layout and size
    (20 views of 4032 x 3024 PNG, poses_bounds.npy) written and checked on
    the host as the loader reads it (4x area downsample, NDC rays), then
    dataset=llff_fern with the default model for 600 iterations. Its bar
    is the test PSNR of the first test view rendered with NDC rays; the
    final eval's of that view (world rays, as nmf_tpu's) is printed beside
    it (one of the three test views: a cut for the script's time).
-10. The Ref-NeRF studio path: model=refnerf with the refnerf 8k arm's
-   field and model (the studio knobs) on the studio path's scene, 500
+13. The Ref-NeRF studio path: model=refnerf with the refnerf 8k arm's
+   field and model (the studio knobs) on the studio path's scene, 400
    iterations (cut from 1000 for the script's time) without a pause;
    PSNR, SSIM, norm_err and tint_psnr beside the flagship studio path's.
-11. The hash-grid path: model=refnerf_tcnn field=hashgrid at the shipped
+14. The hash-grid path: model=refnerf_tcnn field=hashgrid at the shipped
    widths (16 levels of 2^19 x 2 tables, the 128^3 occupancy grid at its
    shipped threshold, 3,542 march steps a ray) on synthetic_sphere, 600
    iterations, geonorm_interp_iters 400: the normal blend printed at
    iterations 0, 100, 300, 500 and 599 (it must read 0 and 1), the
    occupied share after every sweep (not held to anything), the card's
    peak allocated memory and K3's launches on the hash tables.
-12. The dual path: model=microfacet_dualref on synthetic_sphere, 600
+15. The dual path: model=microfacet_dualref on synthetic_sphere, 600
    iterations, the switch to the microfacet model at 300: it must be the
    run's first schedule event, with an optimizer rebuild, Ref-NeRF must
    shade retrace passes and K1 must launch at the retrace shape 1024 x 96.
-13. The grid path: model=microfacet_tensorf2 field=grid at grid.yaml's
+16. The grid path: model=microfacet_tensorf2 field=grid at grid.yaml's
    widths (a 2,097,152-row table of 28 f32 columns) and the flagship's
    samples and budgets on synthetic_sphere: the first 600 iterations of
    the shipped 30,000-iteration schedule, paused, then render_only on the
    pause checkpoint; the card's peak memory, K3's launches and L2-cold
    time on the grid table beside zeros + index_add_ and its bound.
-14. The tensorf_pe path: model=tensorf with the MLPRender_PE head, dbasis
+17. The tensorf_pe path: model=tensorf with the MLPRender_PE head, dbasis
    and 100 density pretraining iterations (their mean alpha printed
    beside start_density), at the tensorf path's widths and cut (the first
    300 iterations of the 30,000-iteration schedule, paused; the upsample
    at 150, rebuilds at 100 and 200), its pause checkpoint rendered in
    batch and streamed (render_only stream=true, K1 in full mode a block):
    the two within 0.1 dB; the streaming eval's seconds and blocks.
-   Every K1 / K2 / K3 launch of paths 8 to 14 must be at a size held
+   Every K1 / K2 / K3 launch of paths 8 to 17 must be at a size held
    before it or held after the path on the ids it launched with; each
    must clear 17 dB.
 
@@ -132,10 +162,13 @@ import contextlib
 import itertools
 import json
 import math
+import multiprocessing
+import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -805,6 +838,21 @@ def check_small_path(torch, dev, extra=(), what="small path"):
     return err
 
 
+# the tiny model=microfacet_tensorf2 of check_small_flagship and the
+# module checks
+SMALL_FLAGSHIP = [
+    "model=microfacet_tensorf2", "dataset=synthetic_sphere",
+    "dataset.image_size=16", "dataset.n_views=4",
+    "field.N_voxel_init=4096", "field.N_voxel_final=8000",
+    "field.upsamp_list=[]", "field.gather_dtype=f32",
+    "model.arch.max_samples_per_ray=16",
+    "model.arch.recur_samples_per_ray=8",
+    "model.arch.proposal_samples_per_ray=8",
+    "model.arch.model.brdf_ray_budget=[512,128]",
+    "model.arch.model.max_retrace_rays=[32]",
+    "model.arch.bg_module.bg_resolution=32"]
+
+
 def check_small_flagship(torch, dev, extra=(), what="small flagship"):
     """One train step (loss and every gradient) and one eval render of a
     tiny model=microfacet_tensorf2 (grid 16^3, envmap 32 x 64, 16 samples a
@@ -820,17 +868,7 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship"):
     from nmf_tpu_torch.ops.draws import Draws
     from nmf_tpu_torch.render import render
 
-    cfg = config.compose([
-        "model=microfacet_tensorf2", "dataset=synthetic_sphere",
-        "dataset.image_size=16", "dataset.n_views=4",
-        "field.N_voxel_init=4096", "field.N_voxel_final=8000",
-        "field.upsamp_list=[]", "field.gather_dtype=f32",
-        "model.arch.max_samples_per_ray=16",
-        "model.arch.recur_samples_per_ray=8",
-        "model.arch.proposal_samples_per_ray=8",
-        "model.arch.model.brdf_ray_budget=[512,128]",
-        "model.arch.model.max_retrace_rays=[32]",
-        "model.arch.bg_module.bg_resolution=32", *extra])
+    cfg = config.compose([*SMALL_FLAGSHIP, *extra])
     ds = load_dataset(cfg["dataset"], None, "train")
     rays_np, rgb_np = ds["all_rays"][:64], ds["all_rgbs"][:64]
     weights = trainer.LossWeights(l1_weight=8e-5, ori_lambda=0.1)
@@ -1025,22 +1063,24 @@ def check_small_slice(torch, dev):
 
 # (label, overrides) of the main paths, at the shipped widths. tensorf:
 # 300 iterations through one upsample (128^3 -> 300^3 at 150) and two
-# alpha-mask rebuilds (100, 200). The flagship: 600 iterations through one
-# upsample (at 300) and no mask rebuild: its density stays under the mask's
-# alpha threshold (1e-3 at the march step) for hundreds of iterations, and
-# a rebuild before it clears it culls the whole scene (PERF.md, section 6).
-FLAGSHIP_ITERS = 600
+# alpha-mask rebuilds (100, 200). The flagship: 450 iterations (cut from
+# 600 for the script's time) through one upsample (at 225) and no mask
+# rebuild: its density stays under the mask's alpha threshold (1e-3 at the
+# march step) for hundreds of iterations, and a rebuild before it clears it
+# culls the whole scene (PERF.md, section 6).
+FLAGSHIP_ITERS = 450
 # flagship train steps whose K3 ids are recorded and replayed: one before
 # the upsample, one after it
 REPLAY_STEPS = (FLAGSHIP_ITERS // 4, 3 * FLAGSHIP_ITERS // 4)
 MAIN_PATHS = (
     ("tensorf", ["model=tensorf", "model.params.n_iters=300",
                  "field.upsamp_list=[150]",
-                 "model.arch.sampler.update_list=[100,200]"]),
+                 "model.arch.sampler.update_list=[100,200]",
+                 "log_rays=true"]),
     ("microfacet_tensorf2", [
         "model=microfacet_tensorf2", f"model.params.n_iters={FLAGSHIP_ITERS}",
         f"field.upsamp_list=[{FLAGSHIP_ITERS // 2}]",
-        "model.arch.sampler.update_list=[]"]),
+        "model.arch.sampler.update_list=[]", "render_path=true"]),
 )
 
 
@@ -1125,15 +1165,16 @@ def counts_at_eval(train, kernels):
 
 
 def drive_main_path(torch, kernels, label, card, n_iters, run,
-                    psnr_bar=PSNR_BAR, hold=None):
+                    psnr_bar=PSNR_BAR, hold=None, trains=True, runs=None):
     """Drive one path with every kernel count set to 0 first: ``run(log)``
     trains and evaluates, and returns (results, train seconds, a note for
     the summary line). Then ``hold(by_size)``, if given, checks the
     launches at sizes known only at run time (``hold_new_sizes``). Fails
-    unless the loss is finite, every kernel launched, only at sizes that
-    its check held, and the test PSNR clears ``psnr_bar`` (None: a path
-    without an eval). Returns (launches by kernel, launches by kernel and
-    sizes, results)."""
+    unless the loss is finite (a path that ``trains``), every kernel of
+    ``runs`` (None: all) launched, each only at sizes that its check held,
+    and the test PSNR clears ``psnr_bar`` (None: a path without an eval).
+    Returns (launches by kernel, launches by kernel and sizes,
+    results)."""
     from nmf_tpu_torch import train
 
     reset_counts(kernels)
@@ -1148,11 +1189,11 @@ def drive_main_path(torch, kernels, label, card, n_iters, run,
                for k in kernels}
     print(f"main path {label}: {wall:.1f} s, launches {launches}, "
           f"by sizes {by_size}, results {res}")
-    if not math.isfinite(res.get("loss", float("nan"))):
+    if trains and not math.isfinite(res.get("loss", float("nan"))):
         fail(f"{label}: training loss is not finite: {res.get('loss')}")
     if hold is not None:
         hold(by_size)
-    check_launches(kernels, label, launches, by_size)
+    check_launches(kernels, label, launches, by_size, runs)
     if psnr_bar is not None and not res.get("psnr", 0.0) > psnr_bar:
         fail(f"{label}: test PSNR {res.get('psnr')} <= {psnr_bar} dB")
     per_step = {k: round(v / n_iters, 2)
@@ -1185,22 +1226,29 @@ STUDIO_ITERS = 1000
 # the studio path's stop_iter pause, which the Blender path resumes from
 # (late in the run, so the Blender path trains few steps: the script's
 # time)
-STUDIO_PAUSE = 3 * STUDIO_ITERS // 4
-# the arms' upsample and mask-rebuild iterations, scaled to STUDIO_ITERS
-STUDIO_UPSAMPLES, STUDIO_REBUILDS = (
-    ",".join(str(i * STUDIO_ITERS // 8000) for i in iters)
-    for iters in ((500, 1000, 2000, 3000, 4000, 5500, 7000),
-                  (2000, 3000, 4000, 5500, 7000)))
-# the studio knobs, apart from the scene
-STUDIO_KNOBS = [
-    "model=microfacet_tensorf2",
-    "field.fixed_shape=true", "model.params.lr_upsample_reset=false",
-    "model.params.distortion_lambda=1e-3", "model.params.max_batch_size=4096",
-    f"model.params.n_iters={STUDIO_ITERS}",
-    f"field.upsamp_list=[{STUDIO_UPSAMPLES}]",
-    f"model.arch.sampler.update_list=[{STUDIO_REBUILDS}]",
-    "final_N_vis=8", "vis_every=0",
-    "device=cuda", f"basedir={LOG_DIR}", "progress_refresh_rate=100"]
+STUDIO_PAUSE = 17 * STUDIO_ITERS // 20
+
+
+def studio_knobs(iters):
+    """The studio knobs, apart from the scene, for a run of ``iters``
+    iterations: the arms' upsample and mask-rebuild iterations scaled from
+    8000 to ``iters``."""
+    upsamples, rebuilds = (
+        ",".join(str(i * iters // 8000) for i in its)
+        for its in ((500, 1000, 2000, 3000, 4000, 5500, 7000),
+                    (2000, 3000, 4000, 5500, 7000)))
+    return [
+        "model=microfacet_tensorf2",
+        "field.fixed_shape=true", "model.params.lr_upsample_reset=false",
+        "model.params.distortion_lambda=1e-3",
+        "model.params.max_batch_size=4096", f"model.params.n_iters={iters}",
+        f"field.upsamp_list=[{upsamples}]",
+        f"model.arch.sampler.update_list=[{rebuilds}]",
+        "final_N_vis=8", "vis_every=0",
+        "device=cuda", f"basedir={LOG_DIR}", "progress_refresh_rate=100"]
+
+
+STUDIO_KNOBS = studio_knobs(STUDIO_ITERS)
 STUDIO = ["dataset=synthetic_studio", "dataset.hemisphere=true",
           "dataset.n_views=24", "dataset.image_size=128", *STUDIO_KNOBS]
 # studio train steps whose K3 ids are recorded and replayed: one with the
@@ -1209,10 +1257,11 @@ STUDIO_REPLAY_STEPS = (STUDIO_ITERS // 32, 15 * STUDIO_ITERS // 16)
 RENDER_ONLY_DB = 0.1  # the verify skill's "Checkpoint / relighting" bar
 
 
-def check_launches(kernels, label, launches, by_size):
-    """Fails unless every kernel launched, only at sizes its check held."""
+def check_launches(kernels, label, launches, by_size, runs=None):
+    """Fails unless every kernel of ``runs`` (None: all) launched, and each
+    only at sizes its check held."""
     for k in kernels:
-        if launches[k["name"]] <= 0:
+        if (runs is None or k["name"] in runs) and launches[k["name"]] <= 0:
             fail(f"{label}: kernel {k['name']} was not launched on the main "
                  "path")
         unheld = set(by_size[k["name"]]) - {r["sizes"] for r in k["shapes"]}
@@ -1222,25 +1271,15 @@ def check_launches(kernels, label, launches, by_size):
 
 
 def studio_path(config):
-    """Generate the studio scene (timed, on the host) and return the
-    path's run for ``drive_main_path``: a stop_iter pause at
+    """The studio path's run for ``drive_main_path`` (its scene from the
+    dataset cache that ``prepare_scenes`` filled): a stop_iter pause at
     STUDIO_PAUSE, a resume to the end with the final checkpoint and eval,
     then render_only on that checkpoint. Fails unless the loss before the
     pause is finite, the pause left a _latest.th, the resumed run wrote
     the final checkpoint and render_only reproduces the final eval's PSNR
     within RENDER_ONLY_DB."""
-    import os
-
     from nmf_tpu_torch import train
-    from nmf_tpu_torch.data import load_dataset
 
-    os.environ["NMF_DATASET_CACHE"] = str(LOG_DIR / "dataset_cache")
-    cfg = config.compose([*STUDIO, "expname=studio"])
-    t0 = time.time()
-    for split in ("train", "test"):
-        load_dataset(cfg["dataset"], None, split)
-    print(f"studio scene: 2 splits x 24 views of 128^2 generated on the "
-          f"host in {time.time() - t0:.1f} s (then read from the cache)")
     folder = LOG_DIR / "synthetic_studio_studio"
 
     def run(log):
@@ -1261,6 +1300,7 @@ def studio_path(config):
             [*STUDIO, "expname=studio_render", "render_only=True",
              f"ckpt={final}"]), log=log)
         print(f"studio render_only: {rendered}")
+        res["render_only_psnr"] = rendered["psnr"]
         if not abs(rendered["psnr"] - res.get("psnr", 0.0)) <= RENDER_ONLY_DB:
             fail(f"studio: render_only PSNR {rendered['psnr']} is not within "
                  f"{RENDER_ONLY_DB} dB of the final eval's {res.get('psnr')}")
@@ -1510,9 +1550,11 @@ def lego_load_path(torch, config):
 # The occupancy-grid path: model=microfacet_tensorf (the NerfAcc-style
 # occupancy grid, 128^3, multiplier 2, a density sweep every 16 iterations,
 # and the normal MLP) at its shipped widths on synthetic_sphere. Cut as the
-# flagship path: 600 iterations, one upsample at 300; and a shrink tick at
-# 400 (the shipped shrink_iters is [], nmf_tpu's tests/test_train.py sets
-# it), so the shrink and the optimizer rebuild after it run on the card.
+# flagship path was: 600 iterations, one upsample at 300; and a shrink tick
+# at 400 (the shipped shrink_iters is [], nmf_tpu's tests/test_train.py
+# sets it), so the shrink and the optimizer rebuild after it run on the
+# card. (Cut to 450, an upsample at 225 and the shrink at 300, it fell from
+# ~31 to 18.7-19.0 dB.)
 # The occupancy threshold is raised from the shipped 0.01 to 0.05: at 0.01
 # the random field's density (~0.018 at build) keeps every cell occupied
 # through 600 iterations, so the grid culls nothing. At 0.05 the grid
@@ -1688,8 +1730,7 @@ def write_llff_scene(config):
     print(f"llff scene: {LLFF_VIEWS} views of {LLFF_W} x {LLFF_H} PNG "
           f"({size} B) and poses_bounds.npy written in "
           f"{time.time() - t0:.1f} s (views on up to 8 threads); bounds "
-          f"{np.asarray(bounds)[0].tolist()}")
-    return scenedir
+          f"{np.asarray(bounds)[0].tolist()}", flush=True)
 
 
 def check_llff_split(scenedir, ds, split):
@@ -1755,8 +1796,8 @@ def ndc_test_psnr(torch, nmf, cfg):
 
 
 def llff_path(torch, config):
-    """Write the LLFF scene (timed), then return the run for
-    ``drive_main_path``: the trainer on dataset=llff_fern, each split
+    """The run for ``drive_main_path`` on the LLFF scene that
+    ``prepare_scenes`` wrote: the trainer on dataset=llff_fern, each split
     checked on the host as it is loaded, before training. Prints each
     load's seconds and traced host peak and the store's bytes. The test
     PSNR the path is held to is that of the test views rendered with NDC
@@ -1764,7 +1805,7 @@ def llff_path(torch, config):
     it."""
     from nmf_tpu_torch import train
 
-    scenedir = write_llff_scene(config)
+    scenedir = DATA_DIR / config.compose(LLFF)["dataset"]["scenedir"]
 
     def run(log):
         torch.cuda.reset_peak_memory_stats()
@@ -1793,9 +1834,9 @@ def llff_path(torch, config):
 # refnerf 8k arm (runs/synthetic_studio_refnerf_studio8k/config.yaml: the
 # studio knobs) on the studio path's scene: 24 views of 128^2, the arm's
 # upsamples and mask rebuilds scaled by 1/8, no pause. Cut for the
-# script's time from the studio path's 1000 iterations to 500, which run
-# the events up to 500 (five upsamples, three rebuilds).
-REFNERF_STUDIO_ITERS = STUDIO_ITERS // 2
+# script's time from the studio path's 1000 iterations to 400, which run
+# the events up to 400 (four upsamples, two rebuilds).
+REFNERF_STUDIO_ITERS = 2 * STUDIO_ITERS // 5
 REFNERF_STUDIO = ["dataset=synthetic_studio", "dataset.hemisphere=true",
                   "dataset.n_views=24", "dataset.image_size=128",
                   "model=refnerf", *STUDIO_KNOBS[1:],
@@ -1817,7 +1858,8 @@ BLEND_AT = (0, 100, 300, 500, REFNERF_TCNN_ITERS - 1)
 # The dual path: model=microfacet_dualref (Ref-NeRF warmup, then the
 # microfacet model with Ref-NeRF shading its retrace pass) at its shipped
 # widths on synthetic_sphere, 600 iterations, warmup_iters cut from 5000
-# to 300.
+# to 300 (at 400 iterations with the switch at 300 it fell to 16.33 dB, at
+# 500 with the switch at 250 to 17.16 dB).
 DUALREF_ITERS, DUALREF_SWITCH = 600, 300
 DUALREF = ["model=microfacet_dualref", "dataset=synthetic_sphere",
            f"model.params.n_iters={DUALREF_ITERS}",
@@ -2064,6 +2106,479 @@ def dualref_path(config):
     return run
 
 
+# ---- this slice: relighting, orbit paths, composition, the ray logger and
+# dual-scene training ----
+
+
+def check_small_relight(torch, dev):
+    """This slice's modules on the card against the CPU, every random draw
+    from one CPU generator for both: 5 steps of ``fit_pano`` at resolution
+    16 on an HDR panorama (the first step's loss, gradients and Adam
+    moments held at 1e-4 relative to each tensor's largest entry, 1e-3
+    for the three scalars' sums; the tensors after 5 steps printed:
+    Adam's first steps are ~lr * sign(g), so an entry whose gradient is
+    within rounding of 0 may move either way); one ``render_path`` frame, two alternating dual-scene train steps
+    (the loss, every gradient, and the update that Adam's moments give the
+    inactive envmap) and ``collect_ray_debug`` of the tiny flagship, its
+    envmaps' mip bias at 12 (``check_small_flagship``). Returns {check:
+    max_abs_err}."""
+    import numpy as np
+
+    from nmf_tpu_torch import config, trainer
+    from nmf_tpu_torch import eval as eval_lib
+    from nmf_tpu_torch.builders import build_bg
+    from nmf_tpu_torch.modules.dual_bg import MultiBG
+    from nmf_tpu_torch.modules.logger import collect_ray_debug
+    from nmf_tpu_torch.ops.draws import Draws
+    from nmf_tpu_torch.scripts.pano2env import fit_pano
+
+    cpu = torch.device("cpu")
+    errs = {}
+    pano = np.random.default_rng(0).gamma(0.6, 2.0, (16, 32, 3)).astype(
+        np.float32)
+    firsts, lasts = [], []
+    for d in (dev, cpu):
+        first = []
+
+        def on_step(it, loss, tensors, grads, m, v, first=first):
+            if it == 0:
+                first += [loss, *grads, *(x.clone() for x in (*m, *v))]
+
+        bg = fit_pano(pano, bg_resolution=16, iters=5, batch=4096, device=d,
+                      log=lambda s: None, on_step=on_step)
+        firsts.append(first)
+        lasts.append([t.detach() for t in (bg.bg_mat, bg.mipbias,
+                                           bg.brightness, bg.mul)])
+    # the loss and the texels' gradients and moments to 1e-4 of each
+    # tensor's largest entry; those of the three scalars (mip bias,
+    # brightness, mul) to 1e-3: each is a sum over every texel of terms of
+    # both signs, which the card's atomics add in another order (their
+    # gradient 1.1e-4 off relative, its square 2.1e-4, in one run)
+    errs["pano fit first step"] = max(
+        max_err(torch, [(a.cpu(), b)], 1e-4,
+                (1e-4 if i % 4 == 1 or i == 0 else 1e-3)
+                * float(b.abs().max()) + 1e-12,
+                f"small pano fit first step, tensor {i}")
+        for i, (a, b) in enumerate(zip(*firsts)))
+    errs["pano fit after 5 steps (not held)"] = max(
+        float((a.cpu() - b).abs().max()) for a, b in zip(*lasts))
+
+    cfg = config.compose(SMALL_FLAGSHIP)
+    ds, nmfs = small_models(torch, dev, SMALL_FLAGSHIP)
+    for nmf in nmfs:
+        with torch.no_grad():
+            nmf.bg_module.mipbias.fill_(12.0)
+    frames = [eval_lib.render_path(
+        nmf, (16, 16), float(ds["focal"]), n_frames=1, chunk=128,
+        draws=Draws(torch.Generator().manual_seed(5)))[0] for nmf in nmfs]
+    errs["render_path frame"] = max_err(
+        torch, [(torch.from_numpy(frames[0]), torch.from_numpy(frames[1]))],
+        1e-4, 1e-5, "small render_path frame")
+    outs = []
+    for nmf in nmfs:
+        dbg = collect_ray_debug(nmf, torch.from_numpy(
+            ds["all_rays"][:64]).to(nmf.rf.aabb.device))
+        outs.append([dbg["xyz"], dbg["weights"], dbg["valid"].float(),
+                     dbg["normals"]])
+    errs["collect_ray_debug"] = max_err(
+        torch, [(a.cpu(), b) for a, b in zip(*outs)], 1e-4, 1e-5,
+        "small collect_ray_debug")
+
+    opts, draws = [], []
+    for nmf in nmfs:
+        d = nmf.rf.aabb.device
+        nmf.bg_module = MultiBG([nmf.bg_module, build_bg(
+            cfg["model"]["arch"]["bg_module"]).to(d)])
+        with torch.no_grad():
+            nmf.bg_module.bgs[1].mipbias.fill_(12.0)
+            nmf.bg_module.bgs[1].bg_mat.add_(0.3)
+        opts.append(trainer.Optimizer(nmf, trainer.OptimConfig(n_iters=10)))
+        draws.append(Draws(torch.Generator().manual_seed(6)))
+    err = 0.0
+    for step in range(2):
+        runs = []
+        for nmf, opt, dr in zip(nmfs, opts, draws):
+            d = nmf.rf.aabb.device
+            nmf.bg_module.select(step)
+            ids = slice(64 * step, 64 * step + 64)
+            before = nmf.bg_module.bgs[0].bg_mat.detach().clone()
+            metrics = trainer.train_step(
+                nmf, opt, torch.from_numpy(ds["all_rays"][ids]).to(d),
+                torch.from_numpy(ds["all_rgbs"][ids]).to(d),
+                (1.0, 1.0, 1.0), trainer.LossWeights(l1_weight=8e-5),
+                draws=dr.scoped(f"{step}"))
+            # envmap 0 is active at step 0, inactive at step 1 (no
+            # gradient: Adam's moments move it)
+            runs.append([metrics["loss"]] + [
+                t.grad for _, t, _ in trainer.differentiated_tensors(nmf)
+                if t.grad is not None]
+                + [nmf.bg_module.bgs[0].bg_mat.detach() - before])
+        if len(runs[0]) != len(runs[1]) or len(runs[0]) < 20:
+            fail(f"small dual step {step}: the card and the CPU "
+                 "differentiated other tensors")
+        if step == 1 and not float(runs[0][-1].abs().max()) > 0:
+            fail("small dual steps: the inactive envmap did not move")
+        # each tensor to 1e-3 of its largest entry, plus 1e-6 of the step's
+        # largest gradient: a frozen scalar's gradient (the shading
+        # model's std) is a sum of terms of both signs, whose rounding
+        # follows the terms, not the sum
+        top = max(float(b.abs().max()) for b in runs[1][1:-1])
+        for i, (a, b) in enumerate(zip(*runs)):
+            scale = float(b.abs().max())
+            err = max(err, max_err(torch, [(a.cpu(), b)], 1e-3,
+                                   1e-3 * scale + 1e-6 * top + 1e-9,
+                                   f"small dual step {step}, tensor {i}"))
+        # the next step starts from the CPU's state on both
+        with torch.no_grad():
+            for (_, a, _), (_, b, _) in zip(
+                    *(trainer.differentiated_tensors(n) for n in nmfs)):
+                a.copy_(b)
+            for x, y in zip(opts[0].m + opts[0].v, opts[1].m + opts[1].v):
+                x.copy_(y)
+    errs["dual steps"] = err
+    for what, err in errs.items():
+        print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
+    return errs
+
+
+def check_logged_rays():
+    """The tensorf main path's log_rays: its final eval's rays.pkl must
+    hold one bundle of at most 512 rays with finite weights. Returns its
+    sizes."""
+    import pickle
+
+    import numpy as np
+
+    path = LOG_DIR / "synthetic_sphere_tensorf" / "imgs_test_all" / "rays.pkl"
+    if not path.exists():
+        fail(f"tensorf: log_rays=true wrote no {path}")
+    with open(path, "rb") as f:
+        entries = pickle.load(f)
+    e = entries[0]
+    sizes = {k: tuple(v.shape) for k, v in e.items()}
+    print(f"tensorf: {path.name} holds {len(entries)} bundle(s), {sizes}, "
+          f"weights sum {float(e['weights'].sum(1).mean()):.4f} a ray")
+    if not (len(entries) == 1 and 0 < e["rays"].shape[0] <= 512
+            and np.isfinite(e["weights"]).all()):
+        fail(f"tensorf: rays.pkl is not one bundle of at most 512 rays with "
+             f"finite weights: {sizes}")
+    return sizes
+
+
+# render_path=true on the flagship main path: its orbit (radius 4 at -30
+# degrees, 60 frames of the test views' 64^2) is the sphere's camera ring,
+# so every frame is held against the analytic scene on the same rays
+ORBIT_FRAMES = 60
+
+
+def check_orbit():
+    """The flagship's imgs_path: ORBIT_FRAMES frame PNGs whose mean PSNR
+    against ``data.synthetic.render_sphere_scene`` on the orbit's rays
+    clears PSNR_BAR, and path.gif with ORBIT_FRAMES frames. Returns the
+    mean PSNR."""
+    import numpy as np
+    from PIL import Image
+
+    from nmf_tpu_torch import eval as eval_lib
+    from nmf_tpu_torch.data.ray_utils import (get_ray_directions_blender,
+                                              get_rays, pose_spherical)
+    from nmf_tpu_torch.data.synthetic import render_sphere_scene
+
+    folder = LOG_DIR / "synthetic_sphere_microfacet_tensorf2" / "imgs_path"
+    size = 64
+    focal = 0.5 * size / np.tan(0.5 * np.deg2rad(60.0))
+    dirs = get_ray_directions_blender(size, size, [focal, focal])
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    psnrs = []
+    for i in range(ORBIT_FRAMES):
+        png = folder / "path" / f"{i:03d}.png"
+        if not png.exists():
+            fail(f"render_path: no frame {png}")
+        frame = np.asarray(Image.open(png), np.float32)[..., :3] / 255
+        rays_o, rays_d = get_rays(dirs, pose_spherical(
+            360.0 * i / ORBIT_FRAMES, -30.0, 4.0))
+        gt = render_sphere_scene(rays_o, rays_d)[0].reshape(size, size, 3)
+        psnrs.append(-10 * np.log10(np.mean((frame - gt) ** 2)))
+    n_gif = eval_lib.gif_frame_count(folder / "path.gif")
+    mean = float(np.mean(psnrs))
+    print(f"render_path: {ORBIT_FRAMES} frames against the analytic sphere: "
+          f"mean PSNR {mean:.2f} dB (min {min(psnrs):.2f}, max "
+          f"{max(psnrs):.2f}); path.gif holds {n_gif} frames (its time "
+          "over a frame's)")
+    if not mean > PSNR_BAR:
+        fail(f"render_path: mean PSNR {mean} <= {PSNR_BAR} dB")
+    if n_gif != ORBIT_FRAMES:
+        fail(f"render_path: path.gif holds {n_gif} frames, not "
+             f"{ORBIT_FRAMES}")
+    return mean
+
+
+# The relight path, on the studio path's final checkpoint and the panorama
+# the Blender path writes (backgrounds/lego_bg.exr): pano2env's fit at its
+# CLI defaults (an envmap of 1024 x 2048, 1000 iterations of 65,536
+# pixels), then render_only with fixed_bg= the checkpoint's own envmap
+# written as an envmap file (it must reproduce the studio render_only
+# within RENDER_ONLY_DB) and with fixed_bg= the fit (its envmap metrics
+# against the panorama must beat the studio model's learned envmap's).
+# pano2env reads a panorama mirrored left to right against the gt_bg
+# convention of the envmap metrics (nmf_tpu's arithmetic; ROADMAP C.9), so
+# the fit is given lego_bg.exr mirrored, which it turns into the scene's
+# environment.
+FIT_ITERS = 1000
+# the fit's extended SAT: (1024 + 2 x 40) x (2048 + 2 x 72) rows of 12
+FIT_SAT_ROWS = (1024 + 80) * (2048 + 144)
+
+
+def relight_path(config, studio):
+    """The relight path's run for ``drive_main_path`` (its results: the
+    identity relight's test metrics, the fit's last loss and lookups a
+    second; its "train seconds": the fit's)."""
+    import numpy as np
+
+    from nmf_tpu_torch import ckpt, train
+    from nmf_tpu_torch.data.exr import read_exr, write_exr
+    from nmf_tpu_torch.scripts.pano2env import fit_pano, read_pano
+
+    def run(log):
+        final = (LOG_DIR / "synthetic_studio_studio"
+                 / "synthetic_studio_studio.th")
+        pano = DATA_DIR / "backgrounds" / "lego_bg.exr"
+        mirrored = LOG_DIR / "relight" / "lego_bg_mirrored.exr"
+        write_exr(mirrored, read_exr(pano)[:, ::-1])
+        losses = {}
+
+        def on_step(it, loss, *_):
+            if it in (0, FIT_ITERS - 1):
+                losses[it] = float(loss)
+
+        torch_sync()
+        t0 = time.time()
+        fitted = fit_pano(read_pano(mirrored), iters=FIT_ITERS, log=log,
+                          on_step=on_step)
+        torch_sync()
+        fit_seconds = time.time() - t0
+        fit_file = LOG_DIR / "relight" / "fit.th"
+        ckpt.save_envmap(fit_file, fitted, {"source": str(mirrored)})
+        own = LOG_DIR / "relight" / "studio_envmap.th"
+        ckpt.save_envmap(own, ckpt.load(final)[0].bg_module)
+        print(f"relight: pano2env fit of {pano.name} (mirrored) at 1024 x "
+              f"2048, {FIT_ITERS} iterations of 65,536 pixels in "
+              f"{fit_seconds:.1f} s; loss first {losses[0]:.5f}, last "
+              f"{losses[FIT_ITERS - 1]:.5f}")
+        relit = {}
+        for name, envmap in (("identity", own), ("fit", fit_file)):
+            relit[name] = train.dispatch(config.compose(
+                [*STUDIO, f"expname=relight_{name}", "render_only=True",
+                 f"ckpt={final}", f"fixed_bg={envmap}"]), log=log)[1]
+            print(f"relight with {name} envmap: {relit[name]}")
+        gap = relit["identity"]["psnr"] - studio["render_only_psnr"]
+        print(f"relight: identity {relit['identity']['psnr']:.4f} dB against "
+              f"the studio render_only {studio['render_only_psnr']:.4f} dB "
+              f"({gap:+.4f}); with the fit: PSNR "
+              f"{relit['fit']['psnr']:.2f} dB, SSIM {relit['fit']['ssim']:.4f}"
+              f", envmap_psnr {relit['fit']['envmap_psnr']:.2f} dB against "
+              f"the learned envmap's {studio['envmap_psnr']:.2f} dB")
+        if not abs(gap) <= RENDER_ONLY_DB:
+            fail(f"relight: the identity relight is {gap:+.4f} dB off the "
+                 f"studio render_only (bar {RENDER_ONLY_DB} dB)")
+        if not relit["fit"]["envmap_psnr"] > studio["envmap_psnr"]:
+            fail(f"relight: the fitted envmap's envmap_psnr "
+                 f"{relit['fit']['envmap_psnr']} does not beat the learned "
+                 f"one's {studio['envmap_psnr']}")
+        res = dict(relit["identity"], loss=losses[FIT_ITERS - 1],
+                   rays_per_sec=FIT_ITERS * 65536 / fit_seconds)
+        note = (f"; fit {fit_seconds:.1f} s, relit with the fit "
+                f"{relit['fit']['psnr']:.2f} dB, envmap_psnr "
+                f"{relit['fit']['envmap_psnr']:.2f} dB")
+        return res, fit_seconds, note
+
+    return run
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+# The compose path: compose_scenes with a flagship checkpoint twice, at
+# x = -1 and x = +1, relit by the relight path's fit, 8 frames of 64^2 at
+# the script's default radius. The checkpoint is the studio path's: the
+# script rebuilds the alpha mask from the composed density, and the sphere
+# flagship's density stays under the mask threshold through its 600
+# iterations (ROADMAP C.2), so its composition renders blank.
+COMPOSE_FRAMES = 8
+
+
+def compose_path():
+    """The compose path's run for ``drive_main_path``: fails unless every
+    frame is finite and not blank."""
+    import numpy as np
+
+    from nmf_tpu_torch.scripts import compose_scenes
+
+    def run(log):
+        flagship = (LOG_DIR / "synthetic_studio_studio"
+                    / "synthetic_studio_studio.th")
+        torch_sync()
+        t0 = time.time()
+        frames = compose_scenes.main([
+            "--ckpt", str(flagship), "--ckpt", str(flagship),
+            "--offset=-1,0,0", "--offset=1,0,0",
+            "--bg", str(LOG_DIR / "relight" / "fit.th"),
+            "--out", str(LOG_DIR / "compose"),
+            "--frames", str(COMPOSE_FRAMES), "--image-size", "64"])
+        torch_sync()
+        seconds = time.time() - t0
+        stack = np.stack(frames)
+        print(f"compose: {len(frames)} frames {stack.shape[1:]} in "
+              f"{seconds:.1f} s, mean {stack.mean():.4f}, min "
+              f"{stack.min():.4f}")
+        if not (len(frames) == COMPOSE_FRAMES and np.isfinite(stack).all()
+                and stack.min() < 0.9):
+            fail("compose: the frames are not finite, or blank")
+        return ({"rays_per_sec": stack[..., 0].size / seconds}, seconds,
+                "")
+
+    return run
+
+
+# The dual-scene path: model=microfacet_tensorf2 at its shipped widths on two
+# scenes of one object under two lights: dataset=lego (the Blender path's
+# studio scene) and dataset2 the studio scene with its environment turned
+# by 180 degrees about +z (lego2, written here with its panorama
+# lego2_bg.exr): one field, one envmap a scene. Both take the studio
+# cameras' near_far [1.4, 5.0]: dual_lego.yaml's [2.5, 7] clips the
+# objects (at camera radius 3.2 the nearest surfaces lie ~2.0 away). Not
+# the generator's env_bg=True copy: its background pixels are opaque where
+# the first scene's are transparent, on the same rays of the same shared
+# field. The studio knobs, DUAL_ITERS iterations with two events: the
+# upsample at half way and the mask rebuild at three quarters (the dual
+# loop restarts the lr schedule at every event, as nmf_tpu's; a rebuild
+# before the density clears the mask threshold culls the scene, ROADMAP
+# C.2).
+DUAL_ITERS = 600
+DUAL = ["dataset=lego", "dataset2=lego",
+        "dataset2.scenedir=nerf_synthetic/lego2",
+        "dataset.near_far=[1.4,5.0]", "dataset2.near_far=[1.4,5.0]",
+        f"datadir={DATA_DIR}", *STUDIO_KNOBS,
+        f"model.params.n_iters={DUAL_ITERS}",
+        f"field.upsamp_list=[{DUAL_ITERS // 2}]",
+        f"model.arch.sampler.update_list=[{3 * DUAL_ITERS // 4}]", "N_vis=4",
+        "expname=lego"]
+DUAL_YAW = 180.0
+
+
+def lego2_split(split):
+    """The dual_scene path's second scene: the studio scene with its light
+    turned by DUAL_YAW, 12 views of 128^2 a split."""
+    from nmf_tpu_torch.data.synthetic import make_shiny_dataset
+
+    return make_shiny_dataset(n_views=12, H=128, W=128, split=split,
+                              hemisphere=True, scene="studio",
+                              env_yaw_deg=DUAL_YAW)
+
+
+# The later paths' scenes are generated on the host by a worker process
+# while the card trains the main paths (generated in line they took ~64 s
+# of the script): the studio scene and its turned-light copy into the
+# dataset cache, the LLFF scene to disk.
+def prepare_scenes(cache_dir):
+    """Generate the studio path's scene, the dual_scene path's lego2 and
+    the LLFF path's scene in this process; returns their seconds."""
+    os.environ["NMF_DATASET_CACHE"] = cache_dir
+    from nmf_tpu_torch import config
+    from nmf_tpu_torch.data import load_dataset
+
+    seconds = {}
+    t0 = time.time()
+    studio = config.compose([*STUDIO, "expname=studio"])["dataset"]
+    for split in ("train", "test"):
+        load_dataset(studio, None, split)
+    seconds["studio (2 splits x 24 views of 128^2)"] = time.time() - t0
+    t0 = time.time()
+    for split in ("train", "test"):
+        lego2_split(split)
+    seconds["lego2 (2 splits x 12 views of 128^2)"] = time.time() - t0
+    t0 = time.time()
+    write_llff_scene(config)
+    seconds["llff (20 views of 4032 x 3024)"] = time.time() - t0
+    return {k: round(v, 1) for k, v in seconds.items()}
+
+
+def dual_path(config):
+    """The dual-scene path's run for ``drive_main_path`` (its results: the
+    lower of the two test PSNRs, with the last logged loss)."""
+    import numpy as np
+
+    from nmf_tpu_torch import ckpt
+    from nmf_tpu_torch import eval as eval_lib
+    from nmf_tpu_torch.data.blender import save_blender_split
+    from nmf_tpu_torch.data.exr import read_exr, write_exr
+    from nmf_tpu_torch.train_dualbg import reconstruction_dual
+
+    def run(log):
+        t0 = time.time()
+        for split in ("train", "test"):
+            gen = lego2_split(split)
+            W, H = gen["img_wh"]
+            save_blender_split(DATA_DIR / "nerf_synthetic" / "lego2", split,
+                               gen["poses"],
+                               gen["all_rgbs"].reshape(-1, H, W, 4),
+                               np.deg2rad(55.0))
+        write_exr(DATA_DIR / "backgrounds" / "lego2_bg.exr", gen["gt_bg_im"])
+        print(f"dual_scene: lego2 (the studio scene, its light turned "
+              f"{DUAL_YAW:g} degrees) read from the dataset cache and "
+              f"written in {time.time() - t0:.1f} s")
+        lines = []
+
+        def logged(s):
+            lines.append(s)
+            log(s)
+
+        cfg = config.compose(DUAL)
+        torch_sync()
+        t0 = time.time()
+        nmf, results = reconstruction_dual(cfg, log=logged)
+        torch_sync()
+        seconds = time.time() - t0
+        order = [ln.split()[2] for ln in lines if ln.startswith("iter ")
+                 and " ds" in ln]
+        env = [eval_lib.calc_envmap_metrics(bg, read_exr(
+            DATA_DIR / "backgrounds" / name))["envmap_psnr"]
+            for bg, name in zip(nmf.bg_module.bgs,
+                                ("lego_bg.exr", "lego2_bg.exr"))]
+        print(f"dual_scene: test PSNR {results[0]['psnr']:.2f} / "
+              f"{results[1]['psnr']:.2f} dB, SSIM {results[0]['ssim']:.4f} /"
+              f" {results[1]['ssim']:.4f}; envmap_psnr {env[0]:.2f} / "
+              f"{env[1]:.2f} dB against their panoramas; logged scene order "
+              f"{order}; {seconds:.1f} s with the evals")
+        for i, r in enumerate(results):
+            if not r["psnr"] > PSNR_BAR:
+                fail(f"dual_scene: test split {i} at {r['psnr']} <= "
+                     f"{PSNR_BAR} dB")
+        if not (LOG_DIR / "dual_lego" / "dual_lego.th").exists():
+            fail("dual_scene: no checkpoint dual_lego.th")
+        try:
+            ckpt.load(LOG_DIR / "dual_lego" / "dual_lego.th")
+            fail("dual_scene: the dual checkpoint reloaded as a one-envmap "
+                 "model")
+        except NotImplementedError:
+            pass
+        loss = [float(ln.split("loss=")[1]) for ln in lines if "loss=" in ln]
+        train_s = [float(ln.split()[-2]) for ln in lines
+                   if ln.startswith("trained ")][0]
+        res = {"psnr": min(r["psnr"] for r in results),
+               "ssim": min(r["ssim"] for r in results), "loss": loss[-1],
+               "rays_per_sec": DUAL_ITERS * 4096 / train_s}
+        note = (f"; test PSNR {results[0]['psnr']:.2f} / "
+                f"{results[1]['psnr']:.2f} dB, envmap_psnr {env[0]:.2f} / "
+                f"{env[1]:.2f} dB")
+        return res, train_s, note
+
+    return run
+
+
 def main():
     import torch
 
@@ -2115,11 +2630,17 @@ def main():
     print("small flagship, card vs CPU: max_abs_err "
           f"{check_small_flagship(torch, dev):.3e}")
     check_small_slice(torch, dev)
+    check_small_relight(torch, dev)
 
     # ---- the main paths: full-width training + test eval, tensorf then
     # the microfacet flagship; each kernel's count is set to 0 just before
     # a path and read just after it ----
     shutil.rmtree(LOG_DIR, ignore_errors=True)
+    cache = str(LOG_DIR / "dataset_cache")
+    os.environ["NMF_DATASET_CACHE"] = cache
+    scene_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    scenes = scene_pool.submit(prepare_scenes, cache)
     launches, by_size, recorded = {}, {}, []
     for label, overrides in MAIN_PATHS:
         cfg = config.compose([*overrides, "dataset=synthetic_sphere",
@@ -2134,13 +2655,22 @@ def main():
             res = reconstruction(cfg, log=log)[1]
             return res, res["train_seconds"], ""
 
+        # the ray logger's bundle marches the whole box: K1 at (512, the
+        # march's steps), held after the path
         with recorder:
             launches[label], by_size[label], _ = drive_main_path(
                 torch, kernels, label, card,
-                int(cfg["model"]["params"]["n_iters"]), run)
+                int(cfg["model"]["params"]["n_iters"]), run,
+                hold=lambda sizes, label=label, rec=recorder: hold_new_sizes(
+                    torch, dev, gen, kernels, label, sizes, rec, deferred))
         recorded += recorder.entries
     if not recorded:
         fail(f"no K3 launch was recorded at flagship steps {REPLAY_STEPS}")
+    check_logged_rays()
+    check_orbit()
+    print(f"scenes generated on the host by a worker process while the "
+          f"main paths trained, seconds: {scenes.result()}")
+    scene_pool.shutdown()
     # ---- the studio path: pause, resume, final checkpoint, render_only ----
     with BinsumRecorder(STUDIO_REPLAY_STEPS) as recorder:
         launches["studio"], by_size["studio"], studio = drive_main_path(
@@ -2166,11 +2696,35 @@ def main():
         torch, kernels, "lego_size", card, LEGO_STEPS,
         lego_load_path(torch, config), psnr_bar=None)
 
+    # ---- relighting (pano2env, fixed_bg) on the studio checkpoint, the
+    # composition of two flagship checkpoints, dual-scene training; their
+    # launches at sizes first seen here (the fit's SAT) held after each ----
+    binsum = next(k for k in kernels if k["name"] == "binsum_rows")
+    for label, path, iters, kw in (
+            # the fit launches K3 (its backward), the renders K1
+            ("relight", relight_path(config, studio), FIT_ITERS,
+             {"runs": ("binsum_rows", "composite_fwd")}),
+            ("compose", compose_path(), COMPOSE_FRAMES,
+             {"psnr_bar": None, "trains": False,
+              "runs": ("composite_fwd",)}),
+            ("dual_scene", dual_path(config), DUAL_ITERS, {})):
+        with BinsumRecorder((), held={r["sizes"] for r in
+                                      binsum["shapes"]}) as rec:
+            launches[label], by_size[label], _ = drive_main_path(
+                torch, kernels, label, card, iters, path, **kw,
+                hold=lambda sizes, label=label, rec=rec: hold_new_sizes(
+                    torch, dev, gen, kernels, label, sizes, rec, deferred))
+    fit_k3 = {size: n for size, n in by_size["relight"][
+        "binsum_rows"].items() if size[2] == FIT_SAT_ROWS}
+    print(f"relight: K3 launches on the fit's SAT (N, C, R, dtype code): "
+          f"{fit_k3}")
+    if not fit_k3:
+        fail("relight: K3 never scattered into the fit's SAT")
+
     # ---- the new modules' paths: the occupancy-grid NMF, then an LLFF
     # scene with NDC rays; their launches at sizes known only at run time
     # (shrunk and NDC field rows, the chosen batch) are recorded at launch
     # and held after the path ----
-    binsum = next(k for k in kernels if k["name"] == "binsum_rows")
     trained = {}
     for label, path, iters in (
             ("occgrid", occgrid_path(config, trained), OCCGRID_ITERS),

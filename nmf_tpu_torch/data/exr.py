@@ -123,6 +123,7 @@ def write_exr(path, img, compression: str = "zips", pixel_type: str = "float"):
     for c in chunks:
         offsets.append(offset)
         offset += len(c)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as f:
         f.write(preamble)
         for o in offsets:

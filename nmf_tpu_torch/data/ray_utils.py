@@ -1,6 +1,9 @@
 """Camera ray generation (host-side numpy; the port's own copy of
 ``nmf_tpu/data/ray_utils.py``: get_ray_directions,
-get_ray_directions_blender, get_rays, ndc_rays_blender, pose_spherical)."""
+get_ray_directions_blender, get_rays, ndc_rays_blender, pose_spherical),
+and PFM image read / write."""
+import re
+
 import numpy as np
 
 
@@ -79,3 +82,36 @@ def pose_spherical(theta_deg, phi_deg, radius):
     flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
                     dtype=np.float64)
     return (flip @ c2w).astype(np.float32)
+
+
+def read_pfm(filename):
+    """A PFM image -> (data (H, W, 3) or (H, W) float32, scale)."""
+    with open(filename, "rb") as f:
+        header = f.readline().decode("utf-8").rstrip()
+        if header not in ("PF", "Pf"):
+            raise ValueError("Not a PFM file.")
+        dim_match = re.match(r"^(\d+)\s(\d+)\s$", f.readline().decode("utf-8"))
+        if not dim_match:
+            raise ValueError("Malformed PFM header.")
+        width, height = map(int, dim_match.groups())
+        scale = float(f.readline().rstrip())
+        endian = "<" if scale < 0 else ">"
+        data = np.fromfile(f, endian + "f")
+    shape = (height, width, 3) if header == "PF" else (height, width)
+    # PFM stores rows bottom to top
+    return np.flipud(data.reshape(shape)), abs(scale)
+
+
+def write_pfm(filename, image, scale=1.0):
+    """Write an (H, W, 3) or (H, W) image as PFM, in the machine's byte
+    order (a negative scale says little-endian)."""
+    image = np.asarray(image, np.float32)
+    color = image.ndim == 3 and image.shape[2] == 3
+    with open(filename, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{image.shape[1]} {image.shape[0]}\n".encode())
+        endian = image.dtype.byteorder
+        if endian == "<" or (endian == "=" and np.little_endian):
+            scale = -scale
+        f.write(f"{scale}\n".encode())
+        np.flipud(image).tofile(f)

@@ -245,6 +245,17 @@ class _ShinyEnv:
         self.irr = ((cosm * sa[None]) @ genv / np.pi
                     ).reshape(iH, iW, 3).astype(np.float32)
 
+    def turn(self, yaw_deg):
+        """Turn the environment about +z by ``yaw_deg`` (a whole number of
+        the coarsest map's columns): every map rolls along azimuth."""
+        for name in ("map", "levels", "irr"):
+            im = getattr(self, name)
+            cols = yaw_deg / 360.0 * im.shape[-2]
+            if cols != int(cols):
+                raise ValueError(f"yaw {yaw_deg} is not a whole number of "
+                                 f"the {im.shape[-2]} columns of {name}")
+            setattr(self, name, np.roll(im, int(cols), axis=-2))
+
     @staticmethod
     def _blur(im, k=9):
         """Box blur: azimuth wraps, elevation clamps at the poles."""
@@ -504,7 +515,7 @@ _SHINY_PHI_DEG = -25.0
 
 def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
                        env_bg=False, hemisphere=False, interreflect=True,
-                       n_gi_samples=64, scene="shiny"):
+                       n_gi_samples=64, scene="shiny", env_yaw_deg=0.0):
     """Protocol scene (see module header). all_rgbs is RGBA (tonemapped
     foreground + alpha) so training can blend random backgrounds like the
     blender loader; test views sit between train azimuths.
@@ -521,7 +532,8 @@ def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
     the one-bounce neighbor-reflection/occlusion MC correction so the GT
     is consistent with a physically based renderer (the blender scenes the
     reference trains on are path traced); costs ~1-2 min host time per
-    split at 400px.
+    split at 400px. env_yaw_deg turns the environment about +z (the scene
+    under another light; not in nmf_tpu's generator).
 
     Results are memoized to runs/.dataset_cache (override location with
     NMF_DATASET_CACHE; set it empty to disable): the dataset is a pure
@@ -536,7 +548,8 @@ def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
                f"_{scene}_{split}_n{n_views}_{H}x{W}"
                f"_r{radius}_s{seed}_p{phi_deg}_bg{int(env_bg)}"
                f"_h{int(hemisphere)}_gi{int(interreflect)}"
-               f"x{n_gi_samples}")
+               f"x{n_gi_samples}"
+               + (f"_y{env_yaw_deg:g}" if env_yaw_deg else ""))
         cache = cdir / f"torch_shiny_{key}.npz"
         if cache.exists():
             with np.load(cache) as z:
@@ -547,6 +560,8 @@ def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
             ds["white_bg"] = bool(ds["white_bg"])
             return ds
     env = _ShinyEnv()
+    if env_yaw_deg:
+        env.turn(env_yaw_deg)
     spheres = {"shiny": _SHINY_SPHERES,
                "cluster": _CLUSTER_SPHERES,
                "studio": _STUDIO_SPHERES}[scene]

@@ -6,13 +6,14 @@ them, the masked angular error of the normals against ``all_norms``
 ground-truth panorama; the eval budget tiers; PNG artifacts (the test
 image, its squared error, rgb|depth and one folder per map), ``mean.txt``,
 the per-image ``stats.yaml`` and the envmap as ``pano.png`` and
-``pano.exr``. PNGs are written with zlib alone, EXRs by ``data/exr.py``.
-``streaming=True`` renders through ``render_streaming`` (rgb, acc and
-depth maps only; local-shading models).
+``pano.exr``; the test sweep's videos; the orbit path (``render_path``)
+and the ray logger's ``rays.pkl``. PNGs are written with zlib alone, EXRs
+by ``data/exr.py``, videos as animated GIFs by PIL (nmf_tpu writes mp4
+through cv2, or a GIF where it cannot). ``streaming=True`` renders through
+``render_streaming`` (rgb, acc and depth maps only; local-shading models).
 
-Not in this slice: LPIPS (its weights cannot be fetched here), videos, the
-HDR renders' ``.exr`` dumps (they come with ``hdr``, ROADMAP A.1) and
-render_path.
+Not in this slice: LPIPS (its weights cannot be fetched here) and the HDR
+renders' ``.exr`` dumps (they come with ``hdr``, ROADMAP A.1).
 """
 import contextlib
 import os
@@ -24,9 +25,12 @@ import torch
 
 from . import utils
 from .data.exr import write_exr, write_png
+from .data.ray_utils import (get_ray_directions_blender, get_rays,
+                              pose_spherical)
 from .data.resize import resize_linear
 from .ops.draws import Draws
 from .render import NMF, render
+from .modules.logger import collect_ray_debug
 from .render_streaming import render_streaming
 
 
@@ -228,14 +232,19 @@ def _save_maps(save_dir, name, maps, pred, gt, near_far):
 def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
              n_vis: int = -1, seed: int = 0, prefix: str = "",
              compute_extra_metrics: bool = True, gt_bg=None,
-             streaming: bool = False):
+             streaming: bool = False, ray_logger=None):
     """Render views of ``dataset`` in chunks of ``nmf.eval_batch_size``
     rays and return the means of psnr, ssim (``compute_extra_metrics``)
     and, where the dataset has them, norm_err and tint_psnr, plus the
     envmap metrics against ``gt_bg``. With ``save_dir``: the images as
     {prefix}{i:03d}.png, one folder of PNGs per map,
-    stats{prefix}.yaml, mean.txt and the envmap as {prefix}pano.png and
-    {prefix}pano.exr (FLOAT, ZIPS).
+    stats{prefix}.yaml, mean.txt, the envmap as {prefix}pano.png and
+    {prefix}pano.exr (FLOAT, ZIPS) and, for more than one view, the
+    sweep's videos {prefix}video.gif, depthvideo.gif and, where the
+    model gives normals, normalvideo.gif. An enabled ``ray_logger``
+    (``modules.logger.RayLogger``) with no entry yet logs the central
+    ``max_rays`` rays of the first view and writes ``rays.pkl`` (and
+    ``rays.html`` where plotly is installed).
     ``streaming``: every view through ``render_streaming`` (no normal
     maps). Random draws come from a generator seeded with ``seed``. As
     nmf_tpu's
@@ -249,6 +258,7 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
     idxs = (range(n_images) if n_vis <= 0
             else range(0, n_images, max(n_images // n_vis, 1)))
     stats = {"psnr": [], "ssim": [], "norm_err": [], "tint_psnr": []}
+    vid = {"video": [], "depthvideo": [], "normalvideo": []}
     if save_dir is not None:
         os.makedirs(save_dir, exist_ok=True)
     for img_i in idxs:
@@ -259,6 +269,13 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
         maps = render_image(nmf, dataset["all_rays"][px], (H, W), chunk=chunk,
                             draws=draws.scoped(f"image{img_i}"),
                             streaming=streaming)
+        if (ray_logger is not None and ray_logger.enable
+                and not ray_logger.entries):
+            lo = max((H // 2) * W + W // 2 - ray_logger.max_rays // 2, 0)
+            rays = torch.from_numpy(np.asarray(
+                dataset["all_rays"][px][lo:lo + ray_logger.max_rays],
+                np.float32)).to(_device(nmf))
+            ray_logger.log(**collect_ray_debug(nmf, rays))
         pred = np.clip(maps["rgb_map"], 0, 1)
         name = f"{prefix}{img_i:03d}.png"
         stats["psnr"].append(utils.rgb_psnr(pred, gt))
@@ -278,6 +295,11 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
         if save_dir is not None:
             write_png(Path(save_dir) / name, pred)
             _save_maps(save_dir, name, maps, pred, gt, dataset.get("near_far"))
+            vid["video"].append(pred)
+            vid["depthvideo"].append(visualize_depth(
+                maps["depth"], dataset.get("near_far")))
+            if "world_normal" in maps:
+                vid["normalvideo"].append((maps["world_normal"] + 1) / 2)
     summary = {k: float(np.mean(v)) for k, v in stats.items() if len(v)}
     if gt_bg is not None and nmf.bg_module is not None:
         summary.update(calc_envmap_metrics(nmf.bg_module, gt_bg))
@@ -293,4 +315,79 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
             envmap = envmap_image(nmf.bg_module)
             write_png(Path(save_dir) / f"{prefix}pano.png", envmap)
             write_exr(Path(save_dir) / f"{prefix}pano.exr", envmap)
+        if len(vid["video"]) > 1:
+            for name, frames in vid.items():
+                if frames:
+                    write_video(Path(save_dir) / f"{prefix}{name}.gif",
+                                frames)
+        if ray_logger is not None and ray_logger.entries:
+            ray_logger.save(str(Path(save_dir) / "rays.pkl"))
+            ray_logger.save_html(str(Path(save_dir) / "rays.html"))
     return summary
+
+
+def write_video(path, frames, fps=30):
+    """Write float [0, 1] or uint8 frames (grey ones stacked to RGB) as an
+    animated GIF at ``path`` with the suffix .gif, looping; floats are
+    truncated to 8 bits, as nmf_tpu's video frames. A GIF frame lasts a
+    whole number of centiseconds: round(100 / fps) of them. PIL merges a
+    frame equal to the one before it into that one, their times summed
+    (``gif_frame_count`` counts them apart). Returns the path, or None
+    without frames."""
+    from PIL import Image
+
+    u8 = [(np.clip(f, 0, 1) * 255).astype(np.uint8)
+          if np.asarray(f).dtype != np.uint8 else np.asarray(f)
+          for f in frames]
+    if not u8:
+        return None
+    u8 = [np.stack([f] * 3, -1) if f.ndim == 2 else f[..., :3] for f in u8]
+    path = Path(path).with_suffix(".gif")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ims = [Image.fromarray(f) for f in u8]
+    ims[0].save(path, save_all=True, append_images=ims[1:],
+                duration=_frame_ms(fps), loop=0)
+    return path
+
+
+def _frame_ms(fps):
+    return 10 * max(round(100 / fps), 1)
+
+
+def gif_frame_count(path, fps=30):
+    """The number of video frames in a GIF that ``write_video`` wrote at
+    ``fps``: its time over one frame's."""
+    from PIL import Image, ImageSequence
+
+    with Image.open(path) as gif:
+        total = sum(f.info["duration"] for f in ImageSequence.Iterator(gif))
+    return round(total / _frame_ms(fps))
+
+
+def render_path(nmf: NMF, hw, focal, n_frames=60, radius=4.0, phi_deg=-30.0,
+                save_dir=None, chunk=4096, draws=None):
+    """Render an orbit: frame i from the camera ``pose_spherical(360 i /
+    n_frames, phi_deg, radius)`` looking at the origin (Blender
+    convention, focal ``focal`` px, ``hw`` pixels), on white, through
+    ``render_rays_chunked`` with the draws of scope ``frame{i}``. With
+    ``save_dir``: each frame as ``path/{i:03d}.png`` and, for more than one
+    frame, all of them as ``path.gif``. Returns the (H, W, 3) frames."""
+    H, W = hw
+    directions = get_ray_directions_blender(H, W, [focal, focal])
+    directions = directions / np.linalg.norm(directions, axis=-1,
+                                             keepdims=True)
+    if draws is None:
+        draws = Draws(torch.Generator(device=_device(nmf)).manual_seed(0))
+    frames = []
+    for i in range(n_frames):
+        rays_o, rays_d = get_rays(
+            directions, pose_spherical(360.0 * i / n_frames, phi_deg, radius))
+        maps = render_image(nmf, np.concatenate([rays_o, rays_d], -1),
+                            (H, W), chunk=chunk,
+                            draws=draws.scoped(f"frame{i}"))
+        frames.append(np.clip(maps["rgb_map"], 0, 1))
+        if save_dir is not None:
+            write_png(Path(save_dir) / "path" / f"{i:03d}.png", frames[-1])
+    if save_dir is not None and len(frames) > 1:
+        write_video(Path(save_dir) / "path.gif", frames)
+    return frames

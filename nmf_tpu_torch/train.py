@@ -21,9 +21,16 @@ the run with a ``_latest.th``; ``resume=True`` continues from it, and
 ``ckpt=`` starts from a checkpoint. ``render_only=True ckpt=...``
 evaluates a checkpoint instead of training, through the streaming
 renderer with ``stream=true`` (which, as in nmf_tpu, the final eval of a
-training run does not read). An LLFF scene whose yaml sets ``ndc_ray``
-trains and evaluates on NDC rays. Runs on ``cuda`` unless the config
-says ``device=cpu``.
+training run does not read), and with ``fixed_bg=<envmap file>`` relit:
+the checkpoint's envmap swapped for the file's (``ckpt.load_envmap``:
+nmf_tpu's or the port's ``scripts/pano2env.py`` fit, or a checkpoint's).
+``render_path=true`` renders the orbit video after the final eval
+(``eval.render_path`` into ``imgs_path/``); ``log_rays=true`` has the
+eval write the ray logger's ``rays.pkl``. A list-valued ``dataset``
+(``dual_lego``, ``dual_mats``) trains two scenes with one envmap each
+(``train_dualbg.py``). An LLFF scene whose yaml sets ``ndc_ray`` trains
+and evaluates on NDC rays. Runs on ``cuda`` unless the config says
+``device=cpu``.
 
 Random streams: the march jitter and the shading model's draws come from
 one ``torch.Generator`` on the device, the ray batches and the background
@@ -38,11 +45,10 @@ The envmap metrics compare against the ``gt_bg`` panorama: a top-level
 ``<datadir>/backgrounds/``, read with ``data.exr.imread_any``; else the
 procedural scene's own.
 
-Not ported yet: ``render_path`` and ``fixed_bg`` relighting (it reads a
-pickled flax pytree) raise ``NotImplementedError``, and so do the
-parameters of the
-bounce-budget controller (``adapt_brdf_budget``) and of the ori/pred
-decays; the port runs on one card (no device mesh) and has no multirun.
+Not ported yet: the parameters of the bounce-budget controller
+(``adapt_brdf_budget``) and of the ori/pred decays raise
+``NotImplementedError``; the port runs on one card (no device mesh) and
+has no multirun.
 """
 import datetime
 import math
@@ -61,6 +67,7 @@ from .builders import build_nmf
 from .data import load_dataset
 from .data.exr import imread_any
 from .logging_utils import RunLogger
+from .modules.logger import RayLogger
 from .ops.draws import Draws
 
 
@@ -224,16 +231,9 @@ def _final_n_vis(cfg):
     return cfg.get("N_vis", -1) if final_n is None else final_n
 
 
-def check_unported(cfg):
-    """Raise for the top-level knobs that this port does not carry yet."""
-    for key, why in (
-            ("render_path", "render_path (the orbit video) comes with a "
-                            "later slice (ROADMAP A.2)"),
-            ("fixed_bg", "fixed_bg relighting reads a format-1 checkpoint "
-                         "(a pickled flax pytree that needs JAX); it comes "
-                         "with scripts/pano2env.py (ROADMAP A.4)")):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}={cfg[key]!r}: {why}")
+def ray_logger(cfg):
+    """The eval's ray logger when the config sets ``log_rays``, else None."""
+    return RayLogger(enable=True) if cfg.get("log_rays") else None
 
 
 def _resolve_gt_bg(cfg, datadir, test_ds):
@@ -267,7 +267,6 @@ def reconstruction(cfg, log=print):
     params = cfg["model"]["params"]
     tier = cfg.get("eval_tier", "train")
     eval_lib.validate_eval_tier(tier)
-    check_unported(cfg)
     device = torch.device(cfg.get("device", "cuda"))
     expname = _expname(cfg)
     logfolder = Path(cfg.get("basedir", "./log")) / expname
@@ -410,7 +409,8 @@ def reconstruction(cfg, log=print):
             res = eval_lib.evaluate(
                 nmf, test_ds, save_dir=str(logfolder / "imgs_test_all"),
                 n_vis=_final_n_vis(cfg), seed=seed,
-                gt_bg=_resolve_gt_bg(cfg, datadir, test_ds))
+                gt_bg=_resolve_gt_bg(cfg, datadir, test_ds),
+                ray_logger=ray_logger(cfg))
         log(f"final test: {res}")
         results.update(res)
     if cfg.get("render_train", False):
@@ -419,6 +419,13 @@ def reconstruction(cfg, log=print):
             n_vis=cfg.get("N_vis", -1), seed=seed)
         log(f"train-split eval: {res_tr}")
         results["train_split"] = res_tr
+    if cfg.get("render_path", False):
+        W, H = test_ds["img_wh"]
+        eval_lib.render_path(nmf, (H, W), train_ds["focal"],
+                             save_dir=str(logfolder / "imgs_path"),
+                             draws=Draws(torch.Generator(device=device)
+                                         .manual_seed(seed)))
+        log("render_path done")
     run_log.close()
     return nmf, results
 
@@ -426,16 +433,17 @@ def reconstruction(cfg, log=print):
 def render_test(cfg, log=print):
     """Evaluate the checkpoint ``ckpt`` on the test split (the final eval's
     view count, seed and ``eval_tier``) and, with ``render_train``, on the
-    train split; through the streaming renderer with ``stream``. Returns
-    (nmf, test metrics)."""
+    train split; through the streaming renderer with ``stream``; with
+    ``fixed_bg``, under that file's envmap. Returns (nmf, test metrics)."""
     if not cfg.get("ckpt"):
         raise SystemExit(
             "render_only=True requires ckpt=<path to a .th checkpoint>")
     tier = cfg.get("eval_tier", "train")
     eval_lib.validate_eval_tier(tier)
-    check_unported(cfg)
     device = torch.device(cfg.get("device", "cuda"))
     nmf, _, _ = ckpt_lib.load(cfg["ckpt"], device)
+    if cfg.get("fixed_bg"):
+        nmf.bg_module = ckpt_lib.load_envmap(cfg["fixed_bg"], device)
     datadir = cfg.get("datadir", "/data")
     test_ds = load_dataset(cfg["dataset"], datadir, split="test")
     logfolder = Path(cfg.get("basedir", "./log")) / _expname(cfg)
@@ -446,7 +454,8 @@ def render_test(cfg, log=print):
                                 save_dir=str(logfolder / "imgs_render"),
                                 n_vis=_final_n_vis(cfg), seed=seed,
                                 gt_bg=_resolve_gt_bg(cfg, datadir, test_ds),
-                                streaming=streaming)
+                                streaming=streaming,
+                                ray_logger=ray_logger(cfg))
         log(f"render_test: {res}")
         if cfg.get("render_train", False):
             train_ds = load_dataset(cfg["dataset"], datadir, split="train")
@@ -461,7 +470,9 @@ def dispatch(cfg, log=print):
     if cfg.get("render_only"):
         return render_test(cfg, log=log)
     if isinstance(cfg.get("dataset"), list):
-        raise NotImplementedError("dual-scene training is not ported yet")
+        from .train_dualbg import reconstruction_dual
+
+        return reconstruction_dual(cfg, log=log)
     return reconstruction(cfg, log=log)
 
 

@@ -10,6 +10,7 @@ differentiates every float leaf of its model, including the scene box
 of the clip, so the train step gives the box a gradient too.
 """
 import math
+import re
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -19,7 +20,10 @@ from .render import NMF, render
 
 
 def label_for_path(s: str) -> str:
-    """Optimizer group of a parameter path ("rf/density_rf/planes/0")."""
+    """Optimizer group of a parameter path ("rf/density_rf/planes/0").
+    Each envmap of a ``MultiBG`` ("bg_module/bgs/1/bg_mat") takes the
+    envmap's groups; nmf_tpu's labels freeze them (ROADMAP C.9)."""
+    s = re.sub(r"^bg_module/bgs/\d+/", "bg_module/", s)
     if s.startswith(("rf/density_rf", "rf/app_rf", "rf/encoding",
                      "rf/density_grid", "rf/app_grid", "rf/grid_rows")):
         return "rf_grid"

@@ -3,8 +3,9 @@
 ``from_jax_state_dict(nmf, sd)`` takes the flat ``{path: ndarray}`` of
 ``nmf_tpu.ckpt.state_dict`` (keys like ``.rf.density_rf.planes[0]``,
 ``.model.brdf.mlp.layers[0]['w']``, ``.rf.encoding.tables``,
-``.model.ref_module.mlp.layers[0]['w']``, ``.model.model1...`` or
-``.bg_module.bg_mat``) and copies
+``.model.ref_module.mlp.layers[0]['w']``, ``.model.model1...``,
+``.bg_module.bg_mat`` or a ``MultiBG``'s ``.bg_module.bgs[1].bg_mat``) and
+copies
 every entry into the port's module of the same path: an attribute per
 ``.name``, a list entry per ``[i]``. MLP layers are ``{"w": (in, out),
 "b"}`` dicts in nmf_tpu and ``nn.Linear``s here: ``['w']`` is the

@@ -377,3 +377,74 @@ def test_tiny_blender_scene_flagship_steps_on_card(cuda, tmp_path):
         log=lambda s: None)
     assert np.isfinite(res["loss"])
     assert (tmp_path / "lego_c" / "imgs_test_all" / "pano.exr").exists()
+
+
+@pytest.mark.cuda
+def test_collect_ray_debug_on_card_launches_k1_and_matches_cpu(cuda):
+    """The ray logger's bundle on the card: its weights through K1 (one
+    launch), equal to the CPU's plain version's."""
+    from nmf_tpu_torch import config
+    from nmf_tpu_torch.builders import build_nmf
+    from nmf_tpu_torch.data import load_dataset
+    from nmf_tpu_torch.modules.logger import collect_ray_debug
+
+    cfg = config.compose([*FLAGSHIP, "dataset.image_size=16"])
+    ds = load_dataset(cfg["dataset"], None, "test")
+    outs = []
+    before = tcomp.COMPOSITE_FWD.launches
+    for dev in (cuda, torch.device("cpu")):
+        nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
+                        tuple(cfg["dataset"]["near_far"]), seed=0,
+                        device=dev)
+        dbg = collect_ray_debug(
+            nmf, torch.from_numpy(ds["all_rays"][:128]).to(dev))
+        outs.append([dbg[k].float().cpu() for k in ("xyz", "weights",
+                                                    "valid")])
+    assert tcomp.COMPOSITE_FWD.launches - before == 1
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pano_fit_on_card_matches_cpu(cuda):
+    """pano2env's fit on the card (its SAT's backward through K3) against
+    the CPU: the first step's loss and gradients."""
+    from nmf_tpu_torch.scripts.pano2env import fit_pano
+
+    pano = np.random.default_rng(0).gamma(0.6, 2.0, (16, 32, 3)).astype(
+        np.float32)
+    firsts = []
+    before = tbin.BINSUM.launches
+    for dev in (cuda, torch.device("cpu")):
+        first = []
+
+        def on_step(it, loss, tensors, grads, m, v, first=first):
+            if it == 0:
+                first += [loss.cpu(), *(g.cpu() for g in grads)]
+
+        fit_pano(pano, bg_resolution=16, iters=2, batch=2048, device=dev,
+                 log=lambda s: None, on_step=on_step)
+        firsts.append(first)
+    assert tbin.BINSUM.launches - before == 2
+    for a, b in zip(*firsts):
+        torch.testing.assert_close(a, b, rtol=1e-3,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-9)
+
+
+@pytest.mark.cuda
+def test_dual_scene_run_on_card(cuda, tmp_path):
+    """A tiny flagship dual-scene run on the card (two sphere scenes, one
+    envmap each): finite test PSNRs, both envmaps moved."""
+    from nmf_tpu_torch import config
+    from nmf_tpu_torch.train_dualbg import reconstruction_dual
+
+    cfg = config.compose([*FLAGSHIP, "dataset2=synthetic_sphere",
+                          "dataset.image_size=16", "dataset2.image_size=16",
+                          "dataset2.n_views=3", "model.params.n_iters=4",
+                          "model.params.batch_size=64", "device=cuda",
+                          f"basedir={tmp_path}", "expname=c", "N_vis=1"])
+    nmf, res = reconstruction_dual(cfg, log=lambda s: None)
+    assert all(np.isfinite(r["psnr"]) for r in res) and len(res) == 2
+    init = float(cfg["model"]["arch"]["bg_module"].get("init_val", -0.6))
+    for bg in nmf.bg_module.bgs:
+        assert float((bg.bg_mat - init).abs().max()) > 0

@@ -121,8 +121,9 @@ def test_evaluate_renders_llff_views_as_nmf_tpu(tmp_path, monkeypatch):
 
 
 def test_pose_helpers_match():
-    """average_poses, center_poses and create_spiral_poses (the spiral of
-    the render_path video, which the port does not render yet)."""
+    """average_poses, center_poses and create_spiral_poses (a spiral
+    camera path that no caller of either package renders: render_path
+    renders an orbit for every scene)."""
     from nmf_tpu.data import llff as jllff
 
     from nmf_tpu_torch.data import llff as tllff

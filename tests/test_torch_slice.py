@@ -240,19 +240,6 @@ def test_unported_flagship_knobs_raise(override):
         tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
 
 
-@pytest.mark.parametrize("override", ["render_path=true", "fixed_bg=env.th"])
-@pytest.mark.parametrize("render_only", [False, True])
-def test_unported_run_knobs_raise(tmp_path, override, render_only):
-    """The top-level knobs the port does not carry raise before any work,
-    in training and in render_only."""
-    cfg = ttrain.config_lib.compose([
-        "model=tensorf", "dataset=synthetic_sphere", "device=cpu",
-        f"basedir={tmp_path}", f"render_only={render_only}",
-        f"ckpt={tmp_path / 'none.th'}", override])
-    with pytest.raises(NotImplementedError):
-        ttrain.dispatch(cfg)
-
-
 # the tiny tensorf of test_reconstruction_on_cpu_writes_eval_images, one
 # step, an eval of one view
 TINY_TENSORF = [
