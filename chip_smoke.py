@@ -37,7 +37,16 @@
    5 steps of pano2env's fit at resolution 16 (the first step's loss,
    gradients and Adam moments), one render_path frame, two alternating
    dual-scene steps (the loss, every gradient, the inactive envmap's
-   update) and collect_ray_debug of the tiny flagship, card against CPU.
+   update) and collect_ray_debug of the tiny flagship, card against CPU;
+   then the tiny flagship with each Microfacet option of the extras slice
+   (visibility, bright rays, Russian roulette, the detached normals,
+   detach_inter, each mixing mode and BRDF sampler, grown budgets) and
+   with every loss extra, clip and weight decay (the first Adam moments
+   too), card against CPU; a tiny run whose budget controller must grow
+   the budgets at step 15; and ``python -m nmf_tpu_torch.train -m`` with
+   two tiny jobs, which must write two run folders. K3 is also held and
+   timed at C = 1 (Russian roulette's retrace counts, N = 1,024 into the
+   flagship's 393,216 samples).
 4. Main paths, at the shipped widths on synthetic_sphere: model=tensorf
    (128^3 grid, 16/24 components, app_dim 24, featureC 128, 4096 rays x
    192 samples) for 300 iterations through one upsample to 300^3 and two
@@ -150,7 +159,17 @@
    at 150, rebuilds at 100 and 200), its pause checkpoint rendered in
    batch and streamed (render_only stream=true, K1 in full mode a block):
    the two within 0.1 dB; the streaming eval's seconds and blocks.
-   Every K1 / K2 / K3 launch of paths 8 to 17 must be at a size held
+18. The extras path (run before path 11): model=microfacet_tensorf2 at
+   its shipped widths on synthetic_sphere with every knob of the extras
+   slice on (the visibility MLP, bright rays at percent_bright 0.5,
+   Russian roulette, detach_N_iters 100, detach_inter, the ori / pred
+   decays, the Charbonier loss, the envmap TV, the normal error, weight
+   decay 1e-6 and the budget controller), 450 iterations, the upsample at
+   half, no rebuild; it prints the budget multiplier's transitions, the
+   visibility loss and the bright-ray share, and fails unless the
+   normals' detach ends in a schedule event at iteration 100. Its
+   launches at the grown budgets' sizes are held after it.
+   Every K1 / K2 / K3 launch of paths 8 to 18 must be at a size held
    before it or held after the path on the ids it launched with; each
    must clear 17 dB.
 
@@ -524,7 +543,9 @@ def binsum_cases(torch, dev, gen):
     segment sums (C = 9) of the 65,536 and 16,384 bounce rays onto 393,216
     and 98,304 samples; the envmap SAT corners' backward (C = 12, 4 rows a
     lookup into the 592 x 1168 table) for the 65,536 and 16,384 bounce rays
-    and the retrace rays' background; the retrace rows (C = 6); f32."""
+    and the retrace rays' background; the retrace rows (C = 6); with
+    Russian roulette (the extras path), the retrace count of each sample
+    (C = 1, the parents of the 1,024 retraced rays); f32."""
     bf16, f32 = torch.bfloat16, torch.float32
     sat = 592 * 1168
     M = FLAGSHIP_B * 96
@@ -562,6 +583,11 @@ def binsum_cases(torch, dev, gen):
         ("flagship retrace rows", 65536, 6,
          torch.randperm(65536, generator=gen, device=dev)[:1024], f32,
          "TakeRows"),
+        # Russian roulette's retrace count a sample: one f32 column, the
+        # parents of the 1,024 retraced rays
+        ("flagship retrace counts (Russian roulette)", M, 1,
+         torch.randint(0, M, (1024,), generator=gen, device=dev), f32,
+         "segment sum"),
     ]
 
 
@@ -853,7 +879,9 @@ SMALL_FLAGSHIP = [
     "model.arch.bg_module.bg_resolution=32"]
 
 
-def check_small_flagship(torch, dev, extra=(), what="small flagship"):
+def check_small_flagship(torch, dev, extra=(), what="small flagship",
+                         weights=None, gt_normals=False, opt_cfg=None,
+                         grad_rtol=1e-3):
     """One train step (loss and every gradient) and one eval render of a
     tiny model=microfacet_tensorf2 (grid 16^3, envmap 32 x 64, 16 samples a
     ray, 8 after the proposal and 8 retraced, bounce budgets [512, 128], 32
@@ -861,7 +889,13 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship"):
     draw made by one CPU generator for both. The envmap's mip bias is 12,
     so every lookup box spans the map: a box of a few texels is a
     difference of SAT entries that the card's cumsum and the CPU's sum in
-    another order (tests/test_torch_flagship.py). ``extra``: overrides."""
+    another order (tests/test_torch_flagship.py). ``extra``: overrides;
+    ``weights``: the loss weights (default L1 and ori); ``gt_normals``:
+    unit ground-truth normals for the rays (a quarter zero, masked);
+    ``opt_cfg``: an optimizer configuration whose first step's Adam first
+    moments (the clipped, weight-decayed gradients) are compared too;
+    ``grad_rtol``: the gradients' tolerance, relative to each tensor's
+    largest entry."""
     from nmf_tpu_torch import config, trainer
     from nmf_tpu_torch.builders import build_nmf
     from nmf_tpu_torch.data import load_dataset
@@ -871,18 +905,27 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship"):
     cfg = config.compose([*SMALL_FLAGSHIP, *extra])
     ds = load_dataset(cfg["dataset"], None, "train")
     rays_np, rgb_np = ds["all_rays"][:64], ds["all_rgbs"][:64]
-    weights = trainer.LossWeights(l1_weight=8e-5, ori_lambda=0.1)
+    if weights is None:
+        weights = trainer.LossWeights(l1_weight=8e-5, ori_lambda=0.1)
+    norms = None
+    if gt_normals:
+        gen = torch.Generator().manual_seed(3)
+        norms = torch.nn.functional.normalize(
+            torch.randn((64, 3), generator=gen), dim=-1)
+        norms[torch.rand(64, generator=gen) < 0.25] = 0
     runs = []
     for d in (dev, torch.device("cpu")):
         nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
                         tuple(cfg["dataset"]["near_far"]), seed=0, device=d)
         with torch.no_grad():
             nmf.bg_module.mipbias.fill_(12.0)
-        trainer.Optimizer(nmf, trainer.OptimConfig())  # gradients on all
+        # gradients on all
+        opt = trainer.Optimizer(nmf, opt_cfg or trainer.OptimConfig())
         rays = torch.from_numpy(rays_np).to(d)
         loss, m = trainer.compute_loss(
             nmf, rays, torch.from_numpy(rgb_np).to(d), weights,
-            (1.0, 1.0, 1.0), draws=Draws(torch.Generator().manual_seed(1)))
+            (1.0, 1.0, 1.0), draws=Draws(torch.Generator().manual_seed(1)),
+            gt_normals=None if norms is None else norms.to(d))
         loss.backward()
         with torch.no_grad():
             image = render(nmf, rays, is_train=False,
@@ -892,13 +935,22 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship"):
                     + [t.grad for _, t, _ in
                        trainer.differentiated_tensors(nmf)
                        if t.grad is not None])
+        if opt_cfg is not None:
+            opt.step()
+            runs[-1] += opt.m
     if len(runs[0]) != len(runs[1]) or len(runs[0]) < 20:
         fail(f"{what}: the card and the CPU differentiated other tensors")
     pairs = [(a.cpu(), b) for a, b in zip(*runs)]
     err = max_err(torch, pairs[:3], 1e-4, 1e-5, f"{what} loss/render")
+    # a scalar's gradient (the shading model's std, the envmap's
+    # brightness) is a sum of terms of both signs, whose rounding follows
+    # the terms, not the sum: 1e-6 of the step's largest gradient more
+    top = max(float(b.abs().max()) for _, b in pairs[3:])
     for i, (a, b) in enumerate(pairs[3:]):
         scale = float(b.abs().max())
-        err = max(err, max_err(torch, [(a, b)], 1e-3, 1e-3 * scale + 1e-9,
+        atol = (grad_rtol * scale + 1e-9
+                + (1e-6 * top if b.dim() == 0 else 0.0))
+        err = max(err, max_err(torch, [(a, b)], grad_rtol, atol,
                                f"{what} gradient {i}"))
     return err
 
@@ -919,6 +971,25 @@ SMALL_TENSORF_OPTIONS = (
     ["field.contract_space=true"], [PE_HEAD])
 SMALL_FLAGSHIP_OPTIONS = (["field=grid", "field.grid_size=[16,16,16]"],
                           ["field.numer_grad=false"])
+# The Microfacet model's options of the extras slice: each alone in the
+# tiny flagship (each mixing mode and BRDF sampler too; an SGGXSampler
+# target builds GGX, as in nmf_tpu, ROADMAP C.10)
+VISIBILITY = ("model.arch.model.visibility_module._target_="
+              "modules.render_modules.VisibilityMLP")
+BRIGHT = ("model.arch.model.bright_sampler._target_="
+          "brdf_samplers.equirect_bright_sampler.ERBrightSampler")
+SMALL_EXTRAS_OPTIONS = (
+    [VISIBILITY], [BRIGHT, "model.arch.model.percent_bright=0.25"],
+    ["model.arch.model.russian_roulette=true"],
+    ["model.arch.model.detach_N_iters=100"], ["model.arch.detach_inter=true"],
+    *([f"model.arch.model.diffuse_mixing_mode={m}"]
+      for m in ("fresnel_ind", "no_diffuse", "lambda")),
+    *([f"model.arch.model.brdf_sampler._target_=brdf_samplers.{t}"]
+      for t in ("beckmann.BeckmannSampler", "cosine.CosineLobeSampler",
+                "multi.MultiSampler")),
+    # a budget transition's grown budgets (x2)
+    ["model.arch.model.brdf_ray_budget=[1024,256]",
+     "model.arch.model.max_retrace_rays=[64]"])
 def small_models(torch, dev, overrides, seed=0):
     """(the dataset, the model of ``overrides`` built on the card, and on
     the CPU), from one seed."""
@@ -1903,6 +1974,76 @@ TENSORF_PE = ["model=tensorf", PE_HEAD, "field.dbasis=true",
 STREAM_DB = 0.1  # streamed against batch test PSNR
 
 
+# The extras path: the flagship at its shipped widths on synthetic_sphere
+# with every knob of the extras slice on, at values a user would set: the
+# visibility MLP, bright rays (the last half of each sample's rays: at 0.1
+# a sample needs 10 rays before one turns bright, ceil(0.9 c) = c below
+# that, and a development run of this path on an H100 turned none
+# bright), Russian roulette, the normals detached for 100 iterations,
+# detach_inter, the ori / pred decays, the Charbonier loss, the envmap
+# TV, the normal error (the sphere's split carries no normals, so the term
+# is zero here; the small check holds it on the card), weight decay and
+# the budget controller. Cut as the flagship path: 450 iterations, the
+# upsample at half, no rebuild (C.2).
+EXTRAS_ITERS = FLAGSHIP_ITERS
+EXTRAS = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
+          f"model.params.n_iters={EXTRAS_ITERS}",
+          f"field.upsamp_list=[{EXTRAS_ITERS // 2}]",
+          "model.arch.sampler.update_list=[]", VISIBILITY, BRIGHT,
+          "model.arch.model.percent_bright=0.5",
+          "model.arch.model.russian_roulette=true",
+          "model.arch.model.detach_N_iters=100",
+          "model.arch.detach_inter=true",
+          "model.params.final_ori_lambda=0.01",
+          "model.params.final_pred_lambda=3e-5",
+          "model.params.charbonier_loss=true",
+          "model.params.TV_weight_bg=0.01",
+          "model.params.normal_err_lambda=1e-4",
+          "model.params.weight_decay=1e-6",
+          "model.params.adapt_brdf_budget=true",
+          "device=cuda", f"basedir={LOG_DIR}", "expname=extras",
+          "progress_refresh_rate=50"]
+
+
+def extras_path(config):
+    """The run of the extras path for ``drive_main_path``: it prints the
+    budget multiplier's transitions, the visibility loss and the bright-ray
+    share at every progress line, and fails unless the normals' detach
+    ends in a schedule event at iteration 100."""
+    from nmf_tpu_torch.train import reconstruction
+
+    cfg = config.compose(EXTRAS)
+
+    def run(log):
+        lines = []
+
+        def logged(line):
+            lines.append(line)
+            log(line)
+
+        res = reconstruction(cfg, log=logged)[1]
+        grown = [ln.split(":")[0] + ln.split("mult")[1]
+                 for ln in lines if "brdf budget mult" in ln]
+        series = {k: [float(ln.split(f"{k}=")[1].split()[0])
+                      for ln in lines if f" {k}=" in ln]
+                  for k in ("visibility_loss", "bright_share")}
+        if not any(ln.startswith("iter 100: schedule event")
+                   for ln in lines):
+            fail("extras: no schedule event at iteration 100, where the "
+                 "bounce normals' detach ends")
+        print(f"extras: budget multiplier x{res['budget_mult']} at the end, "
+              f"transitions {grown or 'none'}; every "
+              f"{cfg['progress_refresh_rate']} iterations: visibility loss "
+              f"{series['visibility_loss']}, bright-ray share "
+              f"{series['bright_share']}")
+        return res, res["train_seconds"], (
+            f", budget x{res['budget_mult']}, visibility loss "
+            f"{res['visibility_loss']:.4f}, bright share "
+            f"{res['bright_share']:.3f}")
+
+    return run
+
+
 def paused_run(config, overrides, log, *renders):
     """Train ``overrides`` to its stop_iter pause, then render_only the
     pause checkpoint once per entry of ``renders`` (extra overrides).
@@ -2239,6 +2380,89 @@ def check_small_relight(torch, dev):
     for what, err in errs.items():
         print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
     return errs
+
+
+def check_small_extras(torch, dev):
+    """The extras slice on the card against the CPU: one train step and one
+    eval render of the tiny flagship with each option of
+    ``SMALL_EXTRAS_OPTIONS`` (``check_small_flagship``); one with the
+    visibility module on and every loss extra (Charbonier, the envmap TV,
+    the normal error against unit normals) and the optimizer's clip and
+    weight decay, whose first Adam moments are compared too; then a tiny
+    run on the card with the budget controller (budgets [128, 64]: the
+    batch asks for > 2x them), which must grow them x2 after step 15.
+    Prints and returns {check: max_abs_err}."""
+    from nmf_tpu_torch import config, trainer
+    from nmf_tpu_torch.train import reconstruction
+
+    errs = {}
+    for extra in SMALL_EXTRAS_OPTIONS:
+        what = "flagship " + " ".join(o.rsplit(".", 1)[-1] for o in extra)
+        # Beckmann draws half vectors from the normal alone: ~18% of its
+        # reflections fall below the horizon and are flipped to graze the
+        # surface, and the gradients through their retrace samples were
+        # 1.2e-3 off between the card and the CPU (one density plane, one
+        # run on an H100): 2e-3
+        rtol = 2e-3 if "Beckmann" in what else 1e-3
+        errs[what] = check_small_flagship(torch, dev, extra, what,
+                                          grad_rtol=rtol)
+    errs["flagship loss extras and weight decay"] = check_small_flagship(
+        torch, dev, [VISIBILITY], "small flagship loss extras",
+        weights=trainer.LossWeights(
+            l1_weight=8e-5, ori_lambda=0.05, pred_lambda=1e-4,
+            normal_err_lambda=1e-4, tv_weight_bg=0.01, charbonier=True),
+        gt_normals=True,
+        opt_cfg=trainer.OptimConfig(clip_grad=0.05, weight_decay=1e-3))
+    lines = []
+    res = reconstruction(config.compose([
+        *SMALL_FLAGSHIP, f"device={dev.type}", "model.params.n_iters=20",
+        "model.params.batch_size=64", "model.params.max_batch_size=64",
+        "model.arch.model.brdf_ray_budget=[128,64]",
+        "model.params.adapt_brdf_budget=true", "render_test=false",
+        f"basedir={LOG_DIR}", "expname=small_budget",
+        "progress_refresh_rate=1000"]), log=lines.append)[1]
+    grown = [ln for ln in lines if "brdf budget mult" in ln]
+    print(f"small budget controller on the card: {grown}, final multiplier "
+          f"x{res['budget_mult']}, loss {res['loss']:.5f}")
+    if not (grown and grown[0].startswith("iter 15: brdf budget mult -> x2")
+            and math.isfinite(res["loss"])):
+        fail(f"small budget controller: no transition at step 15 ({grown})")
+    for what, err in errs.items():
+        print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
+    return errs
+
+
+MULTIRUN_DIR = LOG_DIR / "multirun"
+
+
+def start_multirun(dev):
+    """Start ``python -m nmf_tpu_torch.train -m`` on the card in a process
+    of its own: two tiny model=tensorf jobs swept over n_iters. It runs
+    beside the tiny checks, which compare values, not times."""
+    shutil.rmtree(MULTIRUN_DIR, ignore_errors=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "nmf_tpu_torch.train", "-m",
+         *SMALL_TENSORF, f"device={dev.type}", "model.params.n_iters=3,5",
+         "model.params.batch_size=512", "N_vis=1",
+         f"basedir={MULTIRUN_DIR}", "expname=m"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def check_multirun(proc, t0):
+    """The multirun of ``start_multirun`` must exit 0 and write two run
+    folders (config, checkpoint, test images)."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"multirun exited {proc.returncode}: {err[-2000:]}")
+    jobs = [ln for ln in out.splitlines() if "[multirun" in ln]
+    for n in (3, 5):
+        folder = MULTIRUN_DIR / f"synthetic_sphere_m-n_iters{n}"
+        for name in ("config.yaml", f"synthetic_sphere_m-n_iters{n}.th",
+                     "imgs_test_all/mean.txt"):
+            if not (folder / name).exists():
+                fail(f"multirun: {folder / name} was not written")
+    print(f"multirun on the card: {jobs}, two run folders written, "
+          f"{time.time() - t0:.1f} s beside the tiny checks")
 
 
 def check_logged_rays():
@@ -2626,11 +2850,16 @@ def main():
     floor = launch_floor(torch, dev, deferred)
     kernels = (check_composite(torch, dev, gen, deferred)
                + check_binsum(torch, dev, gen, deferred))
+    print(f"chip_smoke: kernel checks done at {time.time() - t_start:.1f} s")
+    t_multirun, multirun = time.time(), start_multirun(dev)
     print(f"small path, card vs CPU: max_abs_err {check_small_path(torch, dev):.3e}")
     print("small flagship, card vs CPU: max_abs_err "
           f"{check_small_flagship(torch, dev):.3e}")
     check_small_slice(torch, dev)
     check_small_relight(torch, dev)
+    check_small_extras(torch, dev)
+    check_multirun(multirun, t_multirun)
+    print(f"chip_smoke: tiny checks done at {time.time() - t_start:.1f} s")
 
     # ---- the main paths: full-width training + test eval, tensorf then
     # the microfacet flagship; each kernel's count is set to 0 just before
@@ -2727,6 +2956,7 @@ def main():
     # and held after the path ----
     trained = {}
     for label, path, iters in (
+            ("extras", extras_path(config), EXTRAS_ITERS),
             ("occgrid", occgrid_path(config, trained), OCCGRID_ITERS),
             ("occgrid_crop", occgrid_crop_path(torch, config, trained),
              CROP_STEPS),
@@ -2774,11 +3004,15 @@ def main():
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
 
+    t_deferred = time.time()
+    print(f"chip_smoke: paths done at {t_deferred - t_start:.1f} s")
     for row, warm, cold, kname in deferred:
         if warm is not None:
             row["device_ms"] = device_ms(torch, warm, kname)
         if cold is not None:
             row["device_cold_ms"] = device_ms(torch, cold, kname)
+    print(f"chip_smoke: {len(deferred)} deferred device timings in "
+          f"{time.time() - t_deferred:.1f} s")
     for k in kernels:
         for row in k["shapes"]:
             row["launches_by_path"] = {

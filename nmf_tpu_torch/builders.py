@@ -6,8 +6,10 @@ voxel field GridRF / Grid), the AlphaGridSampler and the occupancy-grid
 sampler (which the upstream NerfAccSampler / Raymarcher /
 ContinuousAlphagrid targets map onto), the TensoRF (MLPRender_Fea or
 MLPRender_PE head), Microfacet, RefNeRF and DualModel shading models
-(RandHydraMLPDiffuse, MLPBRDF with ListISH encoders, GGX sampling), the
-MLPNormal / AppDimNormal normal modules and the IntegralEquirect envmap.
+(RandHydraMLPDiffuse, MLPBRDF with ListISH encoders; GGX, Beckmann,
+cosine-lobe or mixed bounce sampling; the VisibilityMLP cache and the
+bright-ray samplers), the MLPNormal / AppDimNormal normal modules and the
+IntegralEquirect envmap.
 Every other target and knob raises ``NotImplementedError`` naming the
 slice that brings it.
 """
@@ -23,10 +25,13 @@ from .models.refnerf import DualModel, init_refnerf
 from .models.tensorf import init_tensorf_shade
 from .modules.bg import init_integral_equirect
 from .modules.brdf import init_mlp_brdf
-from .modules.brdf_samplers import GGXSampler
+from .modules.brdf_samplers import (BeckmannSampler, CosineLobeSampler,
+                                    GGXSampler, MultiSampler)
 from .modules.ish import ListISH
 from .modules.render_modules import (AppDimNormal, RandHydraMLPDiffuse,
                                      init_mlp_normal)
+from .modules.visibility import (CubeBrightSampler, ERBrightSampler,
+                                 init_visibility_mlp)
 from .render import NMF
 from .samplers.alphagrid import SUPERSTEP, AlphaGridSampler
 from .samplers.occgrid import OccGridSampler
@@ -161,15 +166,56 @@ def build_diffuse(generator, dm_cfg, app_dim):
                                   if k in allowed})
 
 
+def build_brdf_sampler(cfg):
+    """The bounce-ray sampler, by nmf_tpu's target suffixes (GGX when
+    none is given); a MultiSampler mixes GGX and the cosine lobe. As in
+    nmf_tpu, an ``SGGXSampler`` target ends with ``GGXSampler`` and builds
+    GGX (ROADMAP C.10): the SGGX sampler is reached only directly."""
+    t = _target(cfg)
+    if t.endswith("GGXSampler") or not t:
+        return GGXSampler()
+    for name, cls in (("CosineLobeSampler", CosineLobeSampler),
+                      ("BeckmannSampler", BeckmannSampler),
+                      ("MultiSampler", MultiSampler)):
+        if t.endswith(name):
+            return cls()
+    raise NotImplementedError(f"brdf sampler {t!r} {_LATER}")
+
+
+def build_visibility(generator, cfg, app_dim):
+    """The visibility cache (VisibilityMLP; nmf_tpu also maps the upstream
+    NaiveVisCache onto it), or None."""
+    if not cfg:
+        return None
+    t = _target(cfg)
+    if not (t.endswith("VisibilityMLP") or t.endswith("NaiveVisCache")
+            or not t):
+        raise NotImplementedError(f"visibility module {t!r} {_LATER}")
+    return init_visibility_mlp(app_dim, generator=generator, **{
+        k: v for k, v in _clean(cfg).items()
+        if k in ("feape", "featureC", "num_layers", "lr")})
+
+
+def build_bright_sampler(cfg):
+    """The bright-ray sampler, or None. The cube sampler builds, as in
+    nmf_tpu, and raises when the model samples it (ROADMAP C.10)."""
+    if not cfg:
+        return None
+    t = _target(cfg)
+    if t.endswith("ERBrightSampler") or not t:
+        return ERBrightSampler()
+    if t.endswith("CubeBrightSampler") or t.endswith(
+            "BrightnessImportanceSampler"):
+        kw = _clean(cfg)
+        return CubeBrightSampler(n_spots=kw.get("n_spots", 16),
+                                 scale=kw.get("scale", 1),
+                                 update_freq=kw.get("update_freq", 1000))
+    raise NotImplementedError(f"bright sampler {t!r} {_LATER}")
+
+
 def build_microfacet(generator, kw, app_dim):
-    for key, why in (("visibility_module", "the visibility module"),
-                     ("bright_sampler", "the bright-ray sampler"),
-                     ("russian_roulette", "Russian roulette"),
-                     ("detach_N_iters", "the detach_N schedule"),
-                     ("percent_bright", "bright-ray substitution")):
-        if kw.get(key):
-            raise NotImplementedError(f"model.arch.model.{key} ({why}) "
-                                      f"{_LATER}")
+    vis_cfg = kw.pop("visibility_module", None)
+    bright = build_bright_sampler(kw.pop("bright_sampler", None))
     dm = build_diffuse(generator, kw.pop("diffuse_module", None) or {},
                        app_dim)
 
@@ -181,16 +227,19 @@ def build_microfacet(generator, kw, app_dim):
     brdf_kw["h_encoder"] = build_encoder(brdf_kw.pop("h_encoder", None))
     brdf_kw["d_encoder"] = build_encoder(brdf_kw.pop("d_encoder", None))
     brdf = init_mlp_brdf(app_dim, generator=generator, **brdf_kw)
+    # drawn after the material heads, so a model without it keeps the
+    # same initial values
+    vis = build_visibility(generator, vis_cfg, app_dim)
 
-    st = _target(kw.pop("brdf_sampler", None) or {})
-    if st and not st.endswith("GGXSampler"):
-        raise NotImplementedError(f"brdf sampler {st!r} {_LATER}")
+    sampler = build_brdf_sampler(kw.pop("brdf_sampler", None) or {})
     mr = kw.pop("max_retrace_rays", None)
     if mr is not None:
         # retrace buffers are rounded up to powers of two
         kw["max_retrace_rays"] = tuple(
             int(2 ** math.ceil(math.log2(max(m, 1)))) for m in mr)
-    return init_microfacet(app_dim, dm, brdf, GGXSampler(), **kw)
+    return init_microfacet(app_dim, dm, brdf, sampler,
+                           visibility_module=vis, bright_sampler=bright,
+                           **kw)
 
 
 def build_refnerf(generator, kw, app_dim):
@@ -255,9 +304,8 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but torch sees no CUDA device; "
                            "pass device=cpu to run on the CPU")
-    for key in ("hdr", "detach_inter"):
-        if arch_cfg.get(key):
-            raise NotImplementedError(f"model.arch.{key} {_LATER}")
+    if arch_cfg.get("hdr"):
+        raise NotImplementedError(f"model.arch.hdr {_LATER}")
     if arch_cfg.get("mlp_dtype") not in (None, "f32"):
         raise NotImplementedError(
             f"model.arch.mlp_dtype={arch_cfg['mlp_dtype']!r} (bf16 MLP "
@@ -296,6 +344,7 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
               align_pred_norms=arch_cfg.get("align_pred_norms", True),
               geonorm_iters=arch_cfg.get("geonorm_iters", -1),
               geonorm_interp_iters=arch_cfg.get("geonorm_interp_iters",
-                                                1000)).to(device)
+                                                1000),
+              detach_inter=arch_cfg.get("detach_inter", False)).to(device)
     sampler.update(rf, init=True)
     return nmf

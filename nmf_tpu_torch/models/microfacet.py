@@ -11,10 +11,23 @@ renderer. One packed segment sum brings the bounce rays back onto their
 samples (fresnel mixing). The row gather's backward and the segment sum go
 through the ``binsum_rows`` kernel.
 
-Not in this slice (they raise ``NotImplementedError`` at build time):
-Russian roulette, the visibility module, the bright-ray sampler, the
-``fresnel_ind`` / ``lambda`` / ``no_diffuse`` mixing modes and the
-``detach_N`` schedule.
+Options (each off in the shipped configs):
+- ``brdf_sampler``: GGX, or SGGX, Beckmann, the cosine lobe or their mix
+  (``modules/brdf_samplers.py``);
+- ``detach_N_iters`` > 0: the bounce rays' normals carry no gradient until
+  that iteration, where the schedule lets them (an optimizer rebuild);
+- ``bright_sampler`` with ``percent_bright`` > 0: the last share of each
+  sample's rays of the primary pass point at bright envmap texels, weighed
+  by the GGX-to-bright pdf ratio, their footprint read from the bright pdf;
+- ``visibility_module``: damps the retrace priority of rays it predicts
+  blocked, and is fit to the retraced rays' background visibility (the
+  ``__visibility_loss`` it reports);
+- ``russian_roulette``: a sample that owns retraced rays is represented by
+  them alone (the retrace count per sample is a ``binsum_rows`` segment
+  sum of one column);
+- ``diffuse_mixing_mode``: ``fresnel`` (the default), ``fresnel_ind`` (the
+  fresnel mix without the BRDF weight), ``no_diffuse`` or ``lambda`` (the
+  tint's mean blends the specular and diffuse terms).
 """
 import torch
 import torch.nn as nn
@@ -23,6 +36,9 @@ from ..modules.brdf_samplers import hammersley_draw
 from ..ops import sh
 from ..ops.masked import segment_sum_to, take_rows_binsum
 from ..ops.safemath import EPS, normalize
+
+
+MIXING_MODES = ("fresnel", "fresnel_ind", "no_diffuse", "lambda")
 
 
 def stable_top_k(x, k: int):
@@ -38,11 +54,15 @@ class Microfacet(nn.Module):
                  brdf_ray_budget=(65536, 16384), max_retrace_rays=(1024,),
                  conserve_energy=True, no_emitters=True,
                  diffuse_mixing_mode="fresnel", min_rough_decay=0.999,
-                 std_decay=1.0, std_decay_interval=10):
+                 std_decay=1.0, std_decay_interval=10, detach_N_iters=0,
+                 percent_bright=0.0, russian_roulette=False,
+                 visibility_module=None, bright_sampler=None):
         super().__init__()
         self.diffuse_module = diffuse_module
         self.brdf = brdf
         self.brdf_sampler = brdf_sampler
+        self.visibility_module = visibility_module
+        self.bright_sampler = bright_sampler
         # schedule scalars (optimizer group "frozen")
         self.min_rough = nn.Parameter(torch.tensor(float(min_rough_start)))
         self.std = nn.Parameter(torch.tensor(float(start_std)))
@@ -53,10 +73,15 @@ class Microfacet(nn.Module):
         self.max_retrace_rays = tuple(int(t) for t in max_retrace_rays)
         self.conserve_energy = bool(conserve_energy)
         self.no_emitters = bool(no_emitters)
-        if diffuse_mixing_mode != "fresnel":
-            raise NotImplementedError(
-                f"diffuse_mixing_mode={diffuse_mixing_mode!r} is not ported "
-                "yet (only fresnel is)")
+        if diffuse_mixing_mode not in MIXING_MODES:
+            raise ValueError(f"diffuse_mixing_mode={diffuse_mixing_mode!r} "
+                             f"is none of {MIXING_MODES}")
+        self.diffuse_mixing_mode = diffuse_mixing_mode
+        self.detach_N_iters = int(detach_N_iters)
+        # the normals start detached only if the schedule will free them
+        self.detach_N = self.detach_N_iters > 0
+        self.percent_bright = float(percent_bright)
+        self.russian_roulette = bool(russian_roulette)
         self.min_rough_decay = float(min_rough_decay)
         self.std_decay = float(std_decay)
         self.std_decay_interval = int(std_decay_interval)
@@ -70,6 +95,9 @@ class Microfacet(nn.Module):
             self.min_rough.mul_(self.min_rough_decay)
         if iteration % self.std_decay_interval == 0:
             self.std.mul_(self.std_decay)
+        if self.detach_N and iteration > self.detach_N_iters:
+            self.detach_N = False
+            return True
         return False
 
     @torch.no_grad()
@@ -92,10 +120,14 @@ class Microfacet(nn.Module):
         Draws: ``app_noise`` (M, app_dim) normal, the material head's
         ``diffuse_noise`` / ``roughness_noise``, ``alloc`` (M,) uniform
         rounding offsets, the Hammersley ``offset1`` / ``offset2`` (R,),
-        ``tiebreak`` (R,) and the retrace pass's draws in scope
-        ``retrace``. ``debug`` carries the per-sample maps, the thinning
-        factor ``__thin_scale`` and the discrete decisions ``__counts``
-        (M,), ``__src`` (R,) and, with a retrace, ``__top_idx`` (T,).
+        ``tiebreak`` (R,), the retrace pass's draws in scope ``retrace``
+        and, with the bright sampler, its ``bright/u``, ``bright/jy`` and
+        ``bright/jx`` (R,). ``debug`` carries the per-sample maps, the
+        thinning factor ``__thin_scale``, the discrete decisions
+        ``__counts`` (M,), ``__src`` (R,) and, with a retrace,
+        ``__top_idx`` (T,), with a visibility module its
+        ``__visibility_loss`` and with bright rays their share of the valid
+        slots ``__bright_share``.
         """
         M = xyz.shape[0]
         dev = xyz.device
@@ -152,6 +184,8 @@ class Microfacet(nn.Module):
         o = 7 + Cf
         bV = -P[:, 0:3]
         bN = P[:, 3:6]
+        if self.detach_N:
+            bN = bN.detach()
         bN = bN * torch.sign((bV * bN).sum(-1, keepdim=True))
         r1 = P[:, 6]
         if is_train:
@@ -167,10 +201,37 @@ class Microfacet(nn.Module):
 
         u1, u2 = hammersley_draw(draws, within, bcounts.to(torch.int32))
         L, basis, logD = self.brdf_sampler.sample(u1, u2, bV, bN, r1, r1)
+        # the last percent_bright of each sample's rays toward bright texels
+        use_bright = (self.bright_sampler is not None
+                      and self.percent_bright > 0 and bg_module is not None
+                      and recur == 0)
+        if use_bright:
+            bdirs, bpdf = self.bright_sampler.sample(
+                draws.scoped("bright"), bg_module, L.shape[0],
+                cache=bg_cache)
+            main = torch.ceil(bcounts * (1.0 - self.percent_bright))
+            bright_mask = ((within >= main.to(torch.int32))
+                           & ((bdirs * bN).sum(-1) > 0) & slot_valid)
+            L = torch.where(bright_mask[:, None], bdirs, L)
         H = normalize((bV + L) / 2)
         local_v = torch.einsum("rij,rj->ri", basis, bV)
         halfvec = torch.einsum("rij,rj->ri", basis, H)
         diffvec = torch.einsum("rij,rj->ri", basis, L)
+        bright_w = None
+        if use_bright:
+            # a bright ray's estimate takes pdf_lobe / pdf_bright, and its
+            # footprint the bright pdf
+            lobe_p = self.brdf_sampler.compute_prob(diffvec, local_v,
+                                                    halfvec, r1, r1)
+            ratio = torch.clamp(lobe_p / torch.clamp(bpdf, min=EPS), 0.0,
+                                1e3)
+            bright_w = torch.where(bright_mask, ratio,
+                                   torch.ones_like(ratio))[:, None].detach()
+            # telemetry: the share of the valid slots drawn toward the envmap
+            bright_share = (bright_mask.sum()
+                            / torch.clamp(slot_valid.sum(), min=1)).detach()
+            logD = torch.where(bright_mask,
+                               torch.log(torch.clamp(bpdf, min=EPS)), logD)
         samp_prob = torch.exp(logD)
         mipval = -torch.log(torch.clamp(bcounts, min=1)) - logD
         bounce_rays = torch.cat([exyz + L * 5e-3, L], dim=-1)
@@ -179,17 +240,27 @@ class Microfacet(nn.Module):
         brdf_weight = self.brdf(bV, sg(L), sg(bN), sg(H), sg(local_v),
                                 sg(halfvec), sg(diffvec), efeatures, sg(r1),
                                 sg(r1))
+        if bright_w is not None:
+            brdf_weight = brdf_weight * bright_w
 
         # incoming light: the envmap for every ray, the field for the top T
         incoming_light, _ = render_reflection(bounce_rays, mipval, False,
                                               draws.scoped("retrace"))
         debug = {"__counts": counts, "__src": src}
+        if use_bright:
+            debug["__bright_share"] = bright_share
+        erc = brc[:, None]
+        vis = self.visibility_module
         if recur < len(self.max_retrace_rays) and bg_module is not None:
             T = self.max_retrace_rays[recur]
             per_sample_factor = bw / brc
             per_ray_factor = (brdf_weight.amax(dim=-1)
                               * ((bV * bN).sum(-1) > 0) * samp_prob)
             contribution = (per_ray_factor * per_sample_factor).detach()
+            if vis is not None:
+                # damp the priority of rays predicted blocked
+                contribution = contribution * (
+                    1.0 - vis(sg(exyz), sg(L), sg(efeatures))[1]).detach()
             contribution = torch.where(slot_valid, contribution,
                                        torch.full_like(contribution, -1.0))
             contribution = (contribution
@@ -199,35 +270,74 @@ class Microfacet(nn.Module):
             contribution = torch.where(slot_valid, contribution,
                                        torch.full_like(contribution, -1e9))
             top_idx = stable_top_k(contribution, T)
-            retraced, _ = render_reflection(
+            retraced, bg_vis = render_reflection(
                 take_rows_binsum(bounce_rays, top_idx), mipval[top_idx],
                 True, draws.scoped("retrace"))
             incoming_light = incoming_light.index_copy(0, top_idx, retraced)
             debug["__top_idx"] = top_idx
+            tvalid = slot_valid[top_idx]
+            if vis is not None:
+                # fit sigvis to 1 - the observed background visibility;
+                # only the visibility MLP takes this gradient
+                sv = vis(exyz[top_idx].detach(), L[top_idx].detach(),
+                         efeatures[top_idx].detach())[1]
+                err = (sv - (1.0 - bg_vis.detach())) ** 2
+                debug["__visibility_loss"] = (
+                    torch.where(tvalid, err, torch.zeros_like(err)).sum()
+                    / torch.clamp(tvalid.sum(), min=1))
+            if self.russian_roulette:
+                # a sample that owns retraced rays keeps only them: its
+                # envmap-only rays drop out, its ray count becomes theirs
+                num_retrace = segment_sum_to(
+                    tvalid[:, None].to(torch.float32), src[top_idx], tvalid,
+                    M)[:, 0]
+                rtmask = num_retrace > 0
+                ray_count = torch.where(rtmask, num_retrace, ray_count)
+                retraced_slot = torch.zeros(budget, dtype=torch.bool,
+                                            device=dev)
+                retraced_slot[top_idx] = tvalid
+                slot_valid = slot_valid & (retraced_slot | ~rtmask[src])
+                erc = ray_count[src][:, None]
 
         def packed_segment_sum(parts):
-            out = segment_sum_to(torch.cat(parts, dim=-1) / brc[:, None],
-                                 src, slot_valid, M)
+            out = segment_sum_to(torch.cat(parts, dim=-1) / erc, src,
+                                 slot_valid, M)
             return torch.split(out, [p.shape[-1] for p in parts], dim=-1)
 
-        costheta = (-bV * H).sum(-1, keepdim=True).abs()
-        spec_reflectance = bR0 + (1 - bR0) * torch.clamp(
-            1 - costheta, 0, 1) ** 5
-        comb = (spec_reflectance * incoming_light * brdf_weight
-                + (1 - spec_reflectance) * ediffuse)
-        spec, brdf_rgb, rgb = packed_segment_sum(
-            [incoming_light, brdf_weight, comb])
-        R0s = matprop["f0"]
-        cth = (-viewdirs * normals).sum(-1, keepdim=True).abs()
-        sr = R0s + (1 - R0s) * torch.clamp(1 - cth, 0, 1) ** 5
-        # a contributing sample left with no ray keeps its diffuse lobe
-        starved = ((w > 0) & (kept == 0))[:, None]
-        rgb = torch.where(starved, (1 - sr) * diffuse, rgb)
-        debug.update({
-            "diffuse": (1 - sr) * diffuse,
-            "tint": sr * brdf_rgb,
-            "roughness": matprop["r1"], "spec": spec, "albedo": albedo,
-            "__thin_scale": alloc_scale})
+        mode = self.diffuse_mixing_mode
+        if mode in ("fresnel", "fresnel_ind"):
+            costheta = (-bV * H).sum(-1, keepdim=True).abs()
+            spec_reflectance = bR0 + (1 - bR0) * torch.clamp(
+                1 - costheta, 0, 1) ** 5
+            lit = incoming_light * brdf_weight if mode == "fresnel" \
+                else incoming_light
+            comb = spec_reflectance * lit + (1 - spec_reflectance) * ediffuse
+            spec, brdf_rgb, rgb = packed_segment_sum(
+                [incoming_light, brdf_weight, comb])
+            R0s = matprop["f0"]
+            cth = (-viewdirs * normals).sum(-1, keepdim=True).abs()
+            sr = R0s + (1 - R0s) * torch.clamp(1 - cth, 0, 1) ** 5
+            # a contributing sample left with no ray keeps its diffuse lobe
+            starved = ((w > 0) & (kept == 0))[:, None]
+            rgb = torch.where(starved, (1 - sr) * diffuse, rgb)
+            debug["diffuse"] = (1 - sr) * diffuse
+            debug["tint"] = sr * brdf_rgb if mode == "fresnel" else sr
+        else:
+            spec, brdf_rgb, tinted = packed_segment_sum(
+                [incoming_light, brdf_weight, incoming_light * brdf_weight])
+            if mode == "no_diffuse":
+                rgb = tinted
+                debug["diffuse"] = diffuse
+                debug["tint"] = brdf_rgb
+            else:  # lambda: the tint's mean blends the two terms
+                lam = tint.mean(dim=-1, keepdim=True)
+                rgb = lam * tinted + (1 - lam) * diffuse
+                rgb = torch.where(counts[:, None] > 0, rgb,
+                                  torch.zeros_like(rgb))
+                debug["diffuse"] = diffuse * (1 - lam)
+                debug["tint"] = brdf_rgb * lam
+        debug.update({"roughness": matprop["r1"], "spec": spec,
+                      "albedo": albedo, "__thin_scale": alloc_scale})
         return rgb, debug
 
 
@@ -238,7 +348,8 @@ def init_microfacet(app_dim, diffuse_module, brdf, brdf_sampler,
     keys = ("anoise", "rays_per_ray", "test_rays_per_ray", "brdf_ray_budget",
             "max_retrace_rays", "conserve_energy", "no_emitters",
             "diffuse_mixing_mode", "min_rough_decay", "std_decay",
-            "std_decay_interval")
+            "std_decay_interval", "detach_N_iters", "percent_bright",
+            "russian_roulette", "visibility_module", "bright_sampler")
     return Microfacet(diffuse_module, brdf, brdf_sampler,
                       min_rough_start=min_rough_start, start_std=start_std,
                       **{k: v for k, v in kwargs.items() if k in keys})

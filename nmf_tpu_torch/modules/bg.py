@@ -73,6 +73,19 @@ class IntegralEquirect(nn.Module):
     def mean_color(self):
         return self.activation_fn(self.bg_mat).reshape(3, -1).mean(dim=-1)
 
+    def tv_loss(self):
+        """Mean absolute difference of the raw map to its lower and right
+        neighbours (``TV_weight_bg``). A difference of 0 (everywhere on
+        the initial map) takes the slope +1, as ``jnp.abs``'s gradient
+        gives it; torch's ``abs`` gives 0 there."""
+        def abs_(d):
+            return torch.where(d >= 0, d, -d)
+
+        img = self.bg_mat
+        tv_h = abs_(img[:, 1:, :-1] - img[:, :-1, :-1])
+        tv_w = abs_(img[:, :-1, 1:] - img[:, :-1, :-1])
+        return (tv_h + tv_w + 1e-8).mean()
+
     def prepare(self, with_sh: bool = True):
         """The per-step cache: extended SAT ``cum_mat``, the pole rows'
         means ``top_row`` / ``bot_row`` and, with ``with_sh``, the

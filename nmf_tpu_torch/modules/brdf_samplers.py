@@ -1,6 +1,8 @@
-"""GGX importance sampling of bounce rays
-(``nmf_tpu/modules/brdf_samplers.py``): Hammersley draws with a random
-toroidal offset, and Heitz 2018 VNDF sampling with its pdf."""
+"""Importance sampling of bounce rays (``nmf_tpu/modules/brdf_samplers.py``):
+Hammersley draws with a random toroidal offset; Heitz 2018 GGX VNDF
+sampling, the SGGX microflake, Beckmann and cosine-lobe samplers and their
+GGX / cosine mix, each with its pdf (``compute_prob``, in the local frame,
+0 below the horizon)."""
 import math
 
 import torch
@@ -42,6 +44,37 @@ def _rows_apply(basis, v):
     return torch.einsum("rij,rj->ri", basis, v)
 
 
+def _frame(N):
+    """Row world basis (R, 3, 3) around N: tangent, bitangent, N."""
+    R = N.shape[0]
+    z_up = N.new_tensor([0.0, 0.0, 1.0]).expand(R, 3)
+    x_up = N.new_tensor([-1.0, 0.0, 0.0]).expand(R, 3)
+    up = torch.where(N[:, 2:3].abs() < 0.999, z_up, x_up)
+    tangent = normalize(torch.cross(up, N, dim=-1))
+    bitangent = normalize(torch.cross(N, tangent, dim=-1))
+    return torch.stack([tangent, bitangent, N], dim=1)
+
+
+def _reflect(V, H_l, basis, N):
+    """World half vector of local H_l, and V reflected about it, flipped
+    into N's hemisphere -> (H, L)."""
+    H = torch.einsum("rji,rj->ri", basis, H_l)
+    L = normalize(2.0 * (V * H).sum(-1, keepdim=True) * H - V)
+    sign = torch.where((L * N).sum(-1, keepdim=True) > 0, 1.0, -1.0)
+    return H, L * sign
+
+
+def _log_pdf(sampler, L, V, H_l, basis, r1, r2):
+    """log of ``sampler``'s pdf of L, no gradient."""
+    return torch.log(torch.clamp(sampler.compute_prob(
+        _rows_apply(basis, L), _rows_apply(basis, V), H_l, r1, r2),
+        min=EPS)).detach()
+
+
+def _below_horizon_zero(dir_in, pdf):
+    return torch.where(dir_in[:, 2] > 0, pdf, torch.zeros_like(pdf))
+
+
 class GGXSampler:
     """Isotropic GGX VNDF sampler (the roughness of both axes is r1)."""
 
@@ -53,10 +86,7 @@ class GGXSampler:
         R = N.shape[0]
         z_up = N.new_tensor([0.0, 0.0, 1.0]).expand(R, 3)
         x_up = N.new_tensor([-1.0, 0.0, 0.0]).expand(R, 3)
-        up = torch.where(N[:, 2:3].abs() < 0.999, z_up, x_up)
-        tangent = normalize(torch.cross(up, N, dim=-1))
-        bitangent = normalize(torch.cross(N, tangent, dim=-1))
-        basis = torch.stack([tangent, bitangent, N], dim=1)
+        basis = _frame(N)
 
         V_l = _rows_apply(basis, V)
         V_stretch = normalize(torch.stack(
@@ -82,16 +112,8 @@ class GGXSampler:
         H_l = normalize(torch.stack([N_stretch[:, 0] * r1,
                                      N_stretch[:, 1] * r2,
                                      N_stretch[:, 2]], dim=-1))
-        H = torch.einsum("rji,rj->ri", basis, H_l)
-
-        L = normalize(2.0 * (V * H).sum(-1, keepdim=True) * H - V)
-        sign = torch.where((L * N).sum(-1, keepdim=True) > 0, 1.0, -1.0)
-        L = L * sign
-
-        L_l = _rows_apply(basis, L)
-        logD = torch.log(torch.clamp(
-            self.compute_prob(L_l, V_l, H_l, r1, r2), min=EPS)).detach()
-        return L, basis, logD
+        _, L = _reflect(V, H_l, basis, N)
+        return L, basis, _log_pdf(self, L, V, H_l, basis, r1, r2)
 
     def compute_prob(self, dir_in, dir_out, halfvec, r1, r2):
         """VNDF pdf D G1(out) / (4 n.out) in the local frame, 0 below the
@@ -111,3 +133,132 @@ class GGXSampler:
                 - torch.log(torch.clamp(4 * dir_out[..., 2], min=EPS)))
         prob = torch.exp(logD)
         return torch.where(dir_in[:, 2] > 0, prob, torch.zeros_like(prob))
+
+
+class SGGXSampler:
+    """SGGX microflake sampler (Heitz et al. 2015) with the surface-like
+    diagonal S = diag(r^2, r^2, 1) in the shading frame: visible normals
+    from the projected ellipse around the view direction."""
+
+    def sample(self, u1, u2, V, N, r1, r2=None):
+        basis = _frame(N)
+        V_l = _rows_apply(basis, V)
+        sxx = torch.clamp(r1, min=1e-3) ** 2
+        szz = torch.ones_like(sxx)
+        wk_raw = torch.cross(V_l, V_l.new_tensor([0.0, 0.0, 1.0]).expand(
+            V_l.shape), dim=-1)
+        wk = normalize(torch.where(
+            V_l[:, 2:3].abs() < 0.999, wk_raw,
+            V_l.new_tensor([1.0, 0.0, 0.0]).expand(V_l.shape)))
+        wj = normalize(torch.cross(wk, V_l, dim=-1))
+        wi = V_l
+
+        def s_dot(a, b):
+            return (sxx * (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1])
+                    + szz * a[:, 2] * b[:, 2])
+
+        Skk = torch.clamp(s_dot(wk, wk), min=EPS)
+        Skj = s_dot(wk, wj)
+        Ski = s_dot(wk, wi)
+        Sjj = torch.clamp(s_dot(wj, wj), min=EPS)
+        Sji = s_dot(wj, wi)
+        Sii = torch.clamp(s_dot(wi, wi), min=EPS)
+        tmp = torch.sqrt(torch.clamp(Sjj * Sii - Sji ** 2, min=EPS))
+        inv_sqrt_Sii = 1.0 / torch.sqrt(Sii)
+        det = torch.clamp(Skk * Sjj * Sii - Skk * Sji ** 2 - Skj ** 2 * Sii
+                          + 2 * Skj * Sji * Ski - Ski ** 2 * Sjj, min=EPS)
+        zero = torch.zeros_like(Skk)
+        Mk = torch.stack([torch.sqrt(det / (Sjj * Sii - Sji ** 2 + EPS)),
+                          zero, zero], -1)
+        Mj = torch.stack([-inv_sqrt_Sii * (Skj * Sii - Ski * Sji) / tmp,
+                          inv_sqrt_Sii * tmp, zero], -1)
+        Mi = torch.stack([inv_sqrt_Sii * Ski, inv_sqrt_Sii * Sji,
+                          inv_sqrt_Sii * Sii], -1)
+        r = torch.sqrt(u1)
+        phi = 2 * math.pi * u2
+        uu = r * torch.cos(phi)
+        vv = r * torch.sin(phi)
+        ww = torch.sqrt(torch.clamp(1 - uu ** 2 - vv ** 2, min=0))
+        H_vis = uu[:, None] * Mk + vv[:, None] * Mj + ww[:, None] * Mi
+        H_l = normalize(H_vis[:, 0:1] * wk + H_vis[:, 1:2] * wj
+                        + H_vis[:, 2:3] * wi)
+        _, L = _reflect(V, H_l, basis, N)
+        return L, basis, _log_pdf(self, L, V, H_l, basis, r1, r2)
+
+    def compute_prob(self, dir_in, dir_out, halfvec, r1, r2):
+        """The SGGX NDF's pdf of the reflected direction. Returns (R,)."""
+        sxx = torch.clamp(r1.reshape(-1), min=1e-3) ** 2
+        quad = torch.clamp((halfvec[:, 0] ** 2 + halfvec[:, 1] ** 2) / sxx
+                           + halfvec[:, 2] ** 2, min=EPS)
+        D = 1.0 / (math.pi * torch.sqrt(sxx * sxx) * quad ** 2)
+        o = dir_out
+        sigma_o = torch.sqrt(torch.clamp(
+            sxx * (o[:, 0] ** 2 + o[:, 1] ** 2) + o[:, 2] ** 2, min=EPS))
+        VdotH = torch.clamp((dir_out * halfvec).sum(-1), min=EPS)
+        return _below_horizon_zero(dir_in, D * VdotH / sigma_o / (4 * VdotH))
+
+
+class BeckmannSampler:
+    """Beckmann NDF importance sampler: theta_h = atan(sqrt(-a^2 ln(1 -
+    u1)))."""
+
+    def sample(self, u1, u2, V, N, r1, r2=None):
+        basis = _frame(N)
+        a2 = torch.clamp(r1, min=1e-3) ** 2
+        tan2 = -a2 * torch.log(torch.clamp(1 - u1, min=1e-8))
+        cos_t = 1.0 / torch.sqrt(1 + tan2)
+        sin_t = torch.sqrt(torch.clamp(1 - cos_t ** 2, min=0))
+        phi = 2 * math.pi * u2
+        H_l = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                           cos_t], dim=-1)
+        _, L = _reflect(V, H_l, basis, N)
+        return L, basis, _log_pdf(self, L, V, H_l, basis, r1, r2)
+
+    def compute_prob(self, dir_in, dir_out, halfvec, r1, r2):
+        a2 = torch.clamp(r1.reshape(-1), min=1e-3) ** 2
+        cos_h = torch.clamp(halfvec[:, 2], EPS, 1)
+        tan2 = (1 - cos_h ** 2) / torch.clamp(cos_h ** 2, min=EPS)
+        D = torch.exp(-tan2 / a2) / (math.pi * a2 * cos_h ** 4)
+        VdotH = torch.clamp((dir_out * halfvec).sum(-1), min=EPS)
+        return _below_horizon_zero(dir_in, D * cos_h / (4 * VdotH))
+
+
+class CosineLobeSampler:
+    """Cosine-weighted hemisphere sampler."""
+
+    def sample(self, u1, u2, V, N, r1, r2=None):
+        basis = _frame(N)
+        r = torch.sqrt(u1)
+        phi = 2 * math.pi * u2
+        local = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                             torch.sqrt(torch.clamp(1 - u1, min=EPS))],
+                            dim=-1)
+        L = torch.einsum("rji,rj->ri", basis, local)
+        logD = torch.log(torch.clamp(local[:, 2] / math.pi, min=EPS))
+        return L, basis, logD
+
+    def compute_prob(self, dir_in, dir_out, halfvec, r1, r2):
+        return _below_horizon_zero(dir_in, dir_in[:, 2] / math.pi)
+
+
+class MultiSampler:
+    """Two lobes: even slots from ``sampler_a`` (GGX), odd ones from
+    ``sampler_b`` (the cosine lobe); the pdf is the mean of the two."""
+
+    def __init__(self, sampler_a=None, sampler_b=None):
+        self.sampler_a = GGXSampler() if sampler_a is None else sampler_a
+        self.sampler_b = CosineLobeSampler() if sampler_b is None \
+            else sampler_b
+
+    def sample(self, u1, u2, V, N, r1, r2=None):
+        La, basis, _ = self.sampler_a.sample(u1, u2, V, N, r1, r2)
+        Lb, _, _ = self.sampler_b.sample(u1, u2, V, N, r1, r2)
+        pick_a = (torch.arange(La.shape[0], device=La.device) % 2) == 0
+        L = torch.where(pick_a[:, None], La, Lb)
+        H_l = _rows_apply(basis, normalize(V + L))
+        return L, basis, _log_pdf(self, L, V, H_l, basis, r1, r2)
+
+    def compute_prob(self, dir_in, dir_out, halfvec, r1, r2):
+        pa = self.sampler_a.compute_prob(dir_in, dir_out, halfvec, r1, r2)
+        pb = self.sampler_b.compute_prob(dir_in, dir_out, halfvec, r1, r2)
+        return (pa.reshape(-1) + pb.reshape(-1)) / 2

@@ -55,6 +55,9 @@ class MultiBG(nn.Module):
     def mean_color(self):
         return self.active.mean_color()
 
+    def tv_loss(self):
+        return self.active.tv_loss()
+
     def get_spherical_harmonics(self, G: int = 100, mipval: float = -5.0,
                                 cache=None):
         return self.active.get_spherical_harmonics(G, mipval, cache=cache)

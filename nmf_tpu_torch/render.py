@@ -21,11 +21,15 @@ tick sets it to ``clip((it - geonorm_iters) / geonorm_interp_iters, 0,
 predicted normals' misalignment as ``prediction_loss``; under the geonorm
 schedule ``ori_loss`` also counts the predicted normals facing away. With
 ``ndc_ray`` the primary pass marches NDC rays (``sampler.sample_ndc``);
-retrace passes march world rays.
+retrace passes march world rays. With ``detach_inter`` a retrace pass's
+weights carry no gradient. Given per-ray ground-truth normals, the primary
+pass reports ``normal_err``: the weighted misalignment of the geometric
+and the predicted normals (zeros without a normal module) with them, over
+the rays whose normal's components sum past 0.9.
 
-Not ported yet: ``merge_runs``, two-stage shading
-(``app_samples_per_ray``), ground-truth normals and ``detach_inter``; a
-configuration asking for them raises ``NotImplementedError`` when built.
+Not ported yet: ``merge_runs`` and two-stage shading
+(``app_samples_per_ray``); a configuration asking for them raises
+``NotImplementedError`` when built.
 """
 import torch
 import torch.nn as nn
@@ -48,7 +52,7 @@ class NMF(nn.Module):
                  proposal_pad=0.01, recur_stepmul=1.0, eval_batch_size=4096,
                  lr_scale=1.0, use_predicted_normals=False,
                  align_pred_norms=True, geonorm_iters=-1,
-                 geonorm_interp_iters=1000):
+                 geonorm_interp_iters=1000, detach_inter=False):
         super().__init__()
         self.rf = rf
         self.sampler = sampler
@@ -69,6 +73,7 @@ class NMF(nn.Module):
         self.recur_stepmul = float(recur_stepmul)
         self.eval_batch_size = int(eval_batch_size)
         self.lr_scale = float(lr_scale)
+        self.detach_inter = bool(detach_inter)
 
     def check_schedule(self, iteration: int) -> bool:
         """Host-side schedule tick, in place. Returns whether the optimizer
@@ -159,15 +164,16 @@ def debug_maps(weight, valid, acc_map, z_vals, xyz_normed, world_normal,
 def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
            draws=None, recur=0, override_near=None, stepmul=1.0,
            tonemap=True, start_mipval=None, draw_debug=False, bg_cache=None,
-           ndc_ray=False):
+           ndc_ray=False, gt_normals=None):
     """Render a ray batch (B, 6) -> (images, stats).
 
     images: rgb_map (B, 3), acc_map (B,) and, with ``draw_debug``, the
     maps of ``debug_maps``. stats (recursion level 0): ori_loss,
     prediction_loss, distortion_loss, envmap_reg, brdf_reg, diffuse_reg,
-    n_valid_samples and, for microfacet shading, thin_scale (and
-    thin_scale_retrace). ``bg_col`` None takes the background from the
-    envmap. ``ndc_ray``: the rays are NDC rays (this pass only; the
+    normal_err (given ``gt_normals`` (B, 3)), n_valid_samples, for
+    microfacet shading thin_scale (and thin_scale_retrace), with a
+    visibility module visibility_loss and with bright rays bright_share. ``bg_col`` None takes the
+    background from the envmap. ``ndc_ray``: the rays are NDC rays (this pass only; the
     shading model's retrace passes march world rays).
 
     Random draws (the march jitter, the resampling offsets, the shading
@@ -218,6 +224,8 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
         xyz.reshape(-1, 4), with_normals=nmf.model.needs_normals(recur))
     sigma = torch.where(valid, sigma.reshape(B, K), sigma.new_zeros(()))
     weight = transmittance_weights(sigma, dists * rf.distance_scale)
+    if recur > 0 and nmf.detach_inter:
+        weight = weight.detach()
     acc_map = weight.sum(dim=1)
 
     xyz_flat = xyz.reshape(-1, 4)
@@ -243,6 +251,9 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
     rgb_map = row_mask_sum(weight[..., None] * rgb.reshape(B, K, 3), valid)
 
     stats = {}
+    for k in ("visibility_loss", "bright_share"):
+        if f"__{k}" in debug:
+            stats[k] = debug[f"__{k}"]
     if "__thin_scale" in debug:
         stats["thin_scale"] = debug["__thin_scale"]
         if retrace_thin:
@@ -270,6 +281,17 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
                 facing = torch.clamp((-vdet * pred_normal).sum(-1),
                                      max=0) ** 2 + facing
             ori = (aweight * facing).sum()
+        normal_err = zero
+        if gt_normals is not None:
+            gt = gt_normals[:, None, :].expand(B, K, 3).reshape(-1, 3)
+            mask = (gt.sum(-1) > 0.9) & valid_flat
+
+            def misalign(n):  # a pass's missing normals are zeros
+                return 2 if n is None else 2 * (1 - (n * gt).sum(-1))
+
+            err = misalign(pred_normal) + misalign(world_normal)
+            normal_err = (torch.where(mask, aweight,
+                                      torch.zeros_like(aweight)) * err).sum()
         pred = zero
         if pred_normal is not None and nmf.align_pred_norms:
             pred = (aweight * 2 * (1 - (pred_normal * world_normal).sum(-1))
@@ -286,6 +308,7 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
                              * debug["diffuse"]).sum() / 3
                             if "diffuse" in debug else zero),
             "distortion_loss": distortion_loss(z_vals, weight, dists),
+            "normal_err": normal_err,
             "n_valid_samples": valid.sum(),
         })
     images = {}

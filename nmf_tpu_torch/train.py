@@ -45,12 +45,25 @@ The envmap metrics compare against the ``gt_bg`` panorama: a top-level
 ``<datadir>/backgrounds/``, read with ``data.exr.imread_any``; else the
 procedural scene's own.
 
-Not ported yet: the parameters of the bounce-budget controller
-(``adapt_brdf_budget``) and of the ori/pred decays raise
-``NotImplementedError``; the port runs on one card (no device mesh) and
-has no multirun.
+Loss extras: ``final_ori_lambda`` / ``final_pred_lambda`` decay the ori
+and pred weights geometrically to those values over ``n_iters`` (a resumed
+run starts at ``decay ** start_iter``); ``charbonier_loss``,
+``TV_weight_bg``, ``normal_err_lambda`` (against the train split's
+``all_norms``, a store on the device batched with the rays) and
+``weight_decay`` go to the trainer. ``adapt_brdf_budget`` grows the
+bounce budgets (``BudgetController``); the pause checkpoint carries the
+grown budgets and ``budget_mult``, the final one the configured budgets.
+
+    python -m nmf_tpu_torch.train -m dataset=synthetic_sphere,synthetic_studio \
+        model.params.n_iters=100,200 ...
+
+runs the cartesian sweep of the comma-list overrides one job after the
+other (``expand_multirun``). The port runs on one card (no device mesh).
 """
+import contextlib
+import copy
 import datetime
+import itertools
 import math
 import sys
 import time
@@ -72,8 +85,6 @@ from .ops.draws import Draws
 
 
 def make_optimizer(nmf, params, n_iters):
-    if params.get("weight_decay"):
-        raise NotImplementedError("params.weight_decay is not ported yet")
     return trainer.Optimizer(nmf, trainer.OptimConfig(
         betas=tuple(params.get("betas", (0.9, 0.99))),
         eps=float(params.get("eps", 1e-8)),
@@ -82,15 +93,15 @@ def make_optimizer(nmf, params, n_iters):
         lr_delay_steps=int(params.get("lr_delay_steps", 100)),
         lr_delay_mult=float(params.get("lr_delay_mult", 0.1)),
         n_iters=n_iters,
-        clip_grad=params.get("clip_grad")))
+        clip_grad=params.get("clip_grad"),
+        weight_decay=float(params.get("weight_decay", 0) or 0)))
 
 
-def make_loss_weights(params, l1_rest=False, tv_mult=1.0):
-    for key in ("final_ori_lambda", "final_pred_lambda", "adapt_brdf_budget",
-                "charbonier_loss", "TV_weight_bg", "normal_err_lambda"):
-        if params.get(key):
-            raise NotImplementedError(f"params.{key} is not ported yet "
-                                      "(ROADMAP A.2)")
+def make_loss_weights(params, l1_rest=False, tv_mult=1.0, ori_mult=1.0,
+                      pred_mult=1.0):
+    """The step's loss weights: the TV weights times ``tv_mult``, ori and
+    pred times their decays' ``ori_mult`` / ``pred_mult``, L1 at
+    ``L1_weight_rest`` once ``l1_rest``."""
     l1 = params.get("L1_weight_initial", 0.0)
     if l1_rest and params.get("L1_weight_rest") is not None:
         l1 = params["L1_weight_rest"]
@@ -100,11 +111,25 @@ def make_loss_weights(params, l1_rest=False, tv_mult=1.0):
         ortho_weight=params.get("ortho_weight", 0.0),
         tv_weight_density=params.get("TV_weight_density", 0.0) * tv_mult,
         tv_weight_app=params.get("TV_weight_app", 0.0) * tv_mult,
-        ori_lambda=params.get("ori_lambda", 0.0),
-        pred_lambda=params.get("pred_lambda", 0.0),
+        ori_lambda=params.get("ori_lambda", 0.0) * ori_mult,
+        pred_lambda=params.get("pred_lambda", 0.0) * pred_mult,
         envmap_lambda=params.get("envmap_lambda", 0.0),
         diffuse_lambda=params.get("diffuse_lambda", 0.0),
-        brdf_lambda=params.get("brdf_lambda", 0.0))
+        brdf_lambda=params.get("brdf_lambda", 0.0),
+        normal_err_lambda=params.get("normal_err_lambda", 0.0),
+        tv_weight_bg=params.get("TV_weight_bg", 0.0),
+        charbonier=bool(params.get("charbonier_loss", False)),
+        charbonier_eps=float(params.get("charbonier_eps", 1e-3)))
+
+
+def lambda_decay(params, name, n_iters):
+    """The per-iteration factor that takes ``<name>_lambda`` to
+    ``final_<name>_lambda`` over ``n_iters``; 1 without a final value."""
+    start, final = params.get(f"{name}_lambda", 0), params.get(
+        f"final_{name}_lambda")
+    if not (start > 0 and final):
+        return 1.0
+    return math.exp(math.log(final / start) / n_iters)
 
 
 def _box_points(rf, draws, n=20000):
@@ -201,6 +226,68 @@ class BatchController:
 
     def reset(self):
         self.size = self.start
+
+
+class BudgetController:
+    """The bounce-budget controller (``adapt_brdf_budget``): every 16 steps,
+    when the least of the last step's thinning factors is under 0.5 (the
+    batch asked for more than twice the rays it got), the model's bounce
+    budgets and retrace rays double, up to ``adapt_brdf_budget_max`` times
+    the base ones; they never shrink. A budget is no tensor's shape, so a
+    change needs no optimizer rebuild. ``mult``: the multiplier the model
+    already carries (a resumed run's ``budget_mult``), which the base is
+    divided out of."""
+
+    def __init__(self, params, model, mult=1, log=print):
+        self.model = model
+        self.on = (bool(params.get("adapt_brdf_budget", False))
+                   and hasattr(model, "brdf_ray_budget"))
+        self.max_mult = int(params.get("adapt_brdf_budget_max", 4))
+        self.mult = int(mult) if self.on else 1
+        self.log = log
+        if self.on:
+            self.base = (tuple(b // self.mult for b in model.brdf_ray_budget),
+                         tuple(r // self.mult
+                               for r in model.max_retrace_rays))
+
+    def apply(self, mult):
+        """Set the model's budgets to ``mult`` times the base."""
+        if self.on:
+            self.model.brdf_ray_budget = tuple(b * mult
+                                               for b in self.base[0])
+            self.model.max_retrace_rays = tuple(r * mult
+                                                for r in self.base[1])
+
+    @contextlib.contextmanager
+    def at_base(self):
+        """The model at the base budgets within the block."""
+        self.apply(1)
+        try:
+            yield
+        finally:
+            self.apply(self.mult)
+
+    def after_step(self, it, metrics):
+        if not self.on or (it + 1) % 16:
+            return
+        thin = min(float(metrics.get("thin_scale", 1.0)),
+                   float(metrics.get("thin_scale_retrace", 1.0)))
+        if thin < 0.5 and self.mult * 2 <= self.max_mult:
+            self.mult *= 2
+            self.apply(self.mult)
+            self.log(f"iter {it}: brdf budget mult -> x{self.mult} "
+                     f"(thin={thin:.2f})")
+
+    def config(self, cfg):
+        """``cfg`` with the model's live budgets, for a resume checkpoint:
+        the resume divides ``budget_mult`` back out of them."""
+        if self.mult == 1:
+            return cfg
+        cfg = copy.deepcopy(cfg)
+        model_cfg = cfg["model"]["arch"]["model"]
+        model_cfg["brdf_ray_budget"] = list(self.model.brdf_ray_budget)
+        model_cfg["max_retrace_rays"] = list(self.model.max_retrace_rays)
+        return cfg
 
 
 def stream_seed(seed: int, start_iter: int) -> int:
@@ -321,8 +408,16 @@ def reconstruction(cfg, log=print):
                              params.get("lr_decay_target_ratio", 0.1))
                      ) ** (1.0 / lr_decay_iters)
     tv_mult = tv_decay ** start_iter
+    ori_decay = lambda_decay(params, "ori", n_iters)
+    pred_decay = lambda_decay(params, "pred", n_iters)
+    ori_mult, pred_mult = ori_decay ** start_iter, pred_decay ** start_iter
+    budgets = BudgetController(params, nmf.model,
+                               mult=extra.get("budget_mult", 1), log=log)
     store_rays = torch.from_numpy(train_ds["all_rays"]).to(device)
     store_rgb = torch.from_numpy(train_ds["all_rgbs"]).to(device)
+    # per-ray ground-truth normals, batched with the rays (normal_err)
+    store_norms = (None if train_ds.get("all_norms") is None else
+                   torch.from_numpy(train_ds["all_norms"]).to(device))
     sampler = trainer.SimpleSampler(
         store_rays.shape[0], batch.size,
         seed=stream_seed(cfg.get("seed", 0), start_iter))
@@ -334,9 +429,10 @@ def reconstruction(cfg, log=print):
     stop_iter = int(cfg.get("stop_iter", 0) or 0)
     iter_limit = min(n_iters, stop_iter) if stop_iter > 0 else n_iters
 
-    def resume_state(iteration):
-        return {"iteration": iteration, "cur_bs": int(batch.size),
-                "budget_mult": 1}
+    def save_resume(iteration):
+        ckpt_lib.save(latest_path, nmf, budgets.config(cfg), extra={
+            "iteration": iteration, "cur_bs": int(batch.size),
+            "budget_mult": budgets.mult})
 
     l1_rest = any(e <= start_iter for e in events) if start_iter else False
     rays_done = 0
@@ -351,28 +447,33 @@ def reconstruction(cfg, log=print):
                   if rgba.shape[-1] == 4 else rgba)
         metrics = trainer.train_step(
             nmf, opt, rays, rgb_gt, tuple(float(c) for c in bg_col),
-            make_loss_weights(params, l1_rest, tv_mult), draws=draws,
-            ndc_ray=ndc_ray)
+            make_loss_weights(params, l1_rest, tv_mult, ori_mult,
+                              pred_mult), draws=draws, ndc_ray=ndc_ray,
+            gt_normals=None if store_norms is None else store_norms[ids])
         tv_mult *= tv_decay
+        ori_mult *= ori_decay
+        pred_mult *= pred_decay
         rays_done += rays.shape[0]
         batch.after_step(it, metrics["n_valid_samples"])
+        budgets.after_step(it, metrics)
         if it % refresh == 0 or it == iter_limit - 1:
             mse = float(metrics["photo_mse"])
             psnr = -10 * math.log10(max(mse, 1e-10))
             loss = float(metrics["loss"])
             rays_per_sec = rays_done / max(time.time() - t_start, 1e-9)
-            thin = {k: float(metrics[k]) for k in
-                    ("thin_scale", "thin_scale_retrace") if k in metrics}
+            shading = {k: float(metrics[k]) for k in
+                       ("thin_scale", "thin_scale_retrace", "visibility_loss",
+                        "bright_share") if k in metrics}
             results.update(loss=loss, train_psnr=psnr,
                            rays_per_sec=rays_per_sec, batch=rays.shape[0],
-                           **thin)
+                           budget_mult=budgets.mult, **shading)
             run_log.scalars(it, psnr=psnr, loss=loss,
                             rays_per_sec=round(rays_per_sec, 1),
                             n_valid_samples=int(metrics["n_valid_samples"]),
-                            **{k: round(v, 4) for k, v in thin.items()})
+                            **{k: round(v, 4) for k, v in shading.items()})
             log(f"iter {it:06d} psnr={psnr:.2f} loss={loss:.5f} "
                 f"rays/s={rays_per_sec:.0f} batch={rays.shape[0]}"
-                + "".join(f" {k}={v:.3f}" for k, v in thin.items()))
+                + "".join(f" {k}={v:.3f}" for k, v in shading.items()))
         if nmf.check_schedule(it + 1):
             opt = make_optimizer(nmf, params, n_iters)
             if not lr_reset:
@@ -392,18 +493,25 @@ def reconstruction(cfg, log=print):
             if cfg.get("save_often"):
                 ckpt_lib.save(logfolder / f"{expname}_{it}.th", nmf, cfg)
         if save_every and (it + 1) % save_every == 0 and it + 1 < n_iters:
-            ckpt_lib.save(latest_path, nmf, cfg, extra=resume_state(it + 1))
+            save_resume(it + 1)
 
     results["train_seconds"] = time.time() - t_start
     if iter_limit < n_iters:
-        ckpt_lib.save(latest_path, nmf, cfg, extra=resume_state(iter_limit))
+        save_resume(iter_limit)
         log(f"stop_iter pause at {iter_limit}/{n_iters}; resume=True "
             "continues")
         run_log.close()
         results["paused_at"] = iter_limit
         return nmf, results
 
-    ckpt_lib.save(logfolder / f"{expname}.th", nmf, cfg)
+    # the final checkpoint holds the configured budgets; the evals run at
+    # the ones the field was trained with (render_path, as nmf_tpu's, at
+    # the configured ones)
+    with budgets.at_base():
+        ckpt_lib.save(logfolder / f"{expname}.th", nmf, cfg)
+    if budgets.mult != 1:
+        log(f"final eval at trained budgets (x{budgets.mult}); checkpoint "
+            "saved at configured budgets")
     if cfg.get("render_test", True):
         with eval_lib.apply_eval_tier(nmf, tier):
             res = eval_lib.evaluate(
@@ -421,10 +529,11 @@ def reconstruction(cfg, log=print):
         results["train_split"] = res_tr
     if cfg.get("render_path", False):
         W, H = test_ds["img_wh"]
-        eval_lib.render_path(nmf, (H, W), train_ds["focal"],
-                             save_dir=str(logfolder / "imgs_path"),
-                             draws=Draws(torch.Generator(device=device)
-                                         .manual_seed(seed)))
+        with budgets.at_base():
+            eval_lib.render_path(nmf, (H, W), train_ds["focal"],
+                                 save_dir=str(logfolder / "imgs_path"),
+                                 draws=Draws(torch.Generator(device=device)
+                                             .manual_seed(seed)))
         log("render_path done")
     run_log.close()
     return nmf, results
@@ -476,8 +585,50 @@ def dispatch(cfg, log=print):
     return reconstruction(cfg, log=log)
 
 
+def expand_multirun(argv):
+    """The jobs of a ``-m`` sweep: every override whose value is a bare
+    comma list (a value in brackets is a list, not a sweep) is swept, the
+    jobs are the cartesian product, in order. Returns [(job overrides,
+    {swept key: value})]."""
+    keys, choices, fixed = [], [], []
+    for ov in argv:
+        if "=" in ov:
+            k, v = ov.split("=", 1)
+            if "," in v and not v.strip().startswith("["):
+                keys.append(k)
+                choices.append(v.split(","))
+                continue
+        fixed.append(ov)
+    jobs = []
+    for combo in itertools.product(*choices):
+        swept = dict(zip(keys, combo))
+        jobs.append((fixed + [f"{k}={v}" for k, v in swept.items()], swept))
+    return jobs
+
+
+def multirun(argv, log=print):
+    """Run the sweep's jobs one after the other. Each job's run folder is
+    its own: the scene names it, and each swept key other than ``dataset``
+    adds ``-<last key part><value>`` to ``expname``. The first job that
+    raises stops the sweep. Returns the jobs' results."""
+    jobs = expand_multirun(argv)
+    results = []
+    for i, (job_argv, swept) in enumerate(jobs):
+        cfg = config_lib.compose(job_argv)
+        suffix = "".join(f"-{k.rsplit('.', 1)[-1]}{v}"
+                         for k, v in swept.items() if k != "dataset")
+        if suffix:
+            cfg["expname"] = f"{cfg.get('expname', 'run')}{suffix}"
+        log(f"[multirun {i + 1}/{len(jobs)}] "
+            + " ".join(f"{k}={v}" for k, v in swept.items()))
+        results.append(dispatch(cfg, log=log))
+    return results
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    if "-m" in argv or "--multirun" in argv:
+        return multirun([a for a in argv if a not in ("-m", "--multirun")])
     return dispatch(config_lib.compose(argv))
 
 

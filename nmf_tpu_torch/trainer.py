@@ -1,9 +1,9 @@
 """Training library (``nmf_tpu/trainer.py``): optimizer groups, the
 optimizer, the loss and the train step.
 
-The optimizer computes what nmf_tpu's ``make_optimizer(fused=True)`` does
-with the shipped configs (no weight decay): optax's global-norm clip, one
-Adam over every tensor, a per-group learning rate and the mip-NeRF
+The optimizer computes what nmf_tpu's ``make_optimizer(fused=True)`` does:
+optax's global-norm clip, the weight decay added to the clipped gradient,
+one Adam over every tensor, a per-group learning rate and the mip-NeRF
 schedule. nmf_tpu
 differentiates every float leaf of its model, including the scene box
 ``rf.aabb`` (frozen, learning rate 0); its gradient enters the global norm
@@ -86,6 +86,9 @@ class OptimConfig(NamedTuple):
     lr_delay_mult: float = 0.1
     n_iters: int = 30000
     clip_grad: Optional[float] = None
+    # L2 as torch's Adam: weight_decay * param added to the gradient after
+    # the clip, before the moments (optax.add_decayed_weights)
+    weight_decay: float = 0.0
 
 
 def group_lrs(nmf: NMF):
@@ -105,6 +108,9 @@ def group_lrs(nmf: NMF):
         lrs["brdf"] = brdf.lr * s
     if nmf.normal_module is not None:
         lrs["normal"] = nmf.normal_module.lr * s
+    vis = getattr(nmf.model, "visibility_module", None)
+    if vis is not None:
+        lrs["visibility"] = vis.lr * s
     bg = nmf.bg_module
     if bg is not None:
         lrs.update(bg=bg.lr * s, bg_mipbias=bg.mipbias_lr * s,
@@ -192,6 +198,10 @@ class Optimizer:
             keep = g_norm < cfg.clip_grad
             grads = [torch.where(keep, g, (g / g_norm) * cfg.clip_grad)
                      for g in grads]
+        if cfg.weight_decay:
+            # every tensor, the frozen ones too (their lr keeps them still)
+            grads = [g + cfg.weight_decay * t
+                     for (t, _), g in zip(self.entries, grads)]
         count = self.count + 1
         step_size = -self.sched(self.count)
         for (t, lr), g, m, v in zip(self.entries, grads, self.m, self.v):
@@ -200,10 +210,10 @@ class Optimizer:
 
 
 class LossWeights(NamedTuple):
-    """Per-iteration loss weights (nmf_tpu's LossWeights). The
-    normal-error and visibility terms are exact zeros without ground-truth
-    normals or a visibility module (not in the ported slices) and are not
-    computed."""
+    """Per-iteration loss weights (nmf_tpu's LossWeights). The visibility
+    term's weight is fixed at 1 (its inputs are detached: it trains the
+    visibility MLP alone); ``charbonier`` swaps the clipped squared error
+    for sqrt(d^2 + charbonier_eps^2) on the unclipped colours."""
     distortion_lambda: float = 0.0
     l1_weight: float = 8e-5
     ortho_weight: float = 0.0
@@ -214,6 +224,11 @@ class LossWeights(NamedTuple):
     envmap_lambda: float = 0.0
     diffuse_lambda: float = 0.0
     brdf_lambda: float = 0.0
+    normal_err_lambda: float = 0.0
+    tv_weight_bg: float = 0.0
+    visibility_lambda: float = 1.0
+    charbonier: bool = False
+    charbonier_eps: float = 1e-3
 
 
 # loss weight -> render stat it scales
@@ -221,47 +236,61 @@ _STAT_TERMS = (("distortion_lambda", "distortion_loss"),
                ("ori_lambda", "ori_loss"),
                ("pred_lambda", "prediction_loss"),
                ("envmap_lambda", "envmap_reg"),
-               ("diffuse_lambda", "diffuse_reg"), ("brdf_lambda", "brdf_reg"))
+               ("diffuse_lambda", "diffuse_reg"), ("brdf_lambda", "brdf_reg"),
+               ("normal_err_lambda", "normal_err"))
 
 
 def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
-                 draws, ndc_ray=False):
+                 draws, ndc_ray=False, gt_normals=None):
     """Photometric + regularizer loss. Returns (loss, metrics). The envmap
     cache is built once here for the whole step; ``ndc_ray``: the rays are
-    NDC rays."""
+    NDC rays; ``gt_normals`` (B, 3): the rays' ground-truth normals (the
+    normal-error term needs them)."""
     bg_cache = nmf.bg_module.prepare() if nmf.bg_module is not None else None
     ims, stats = render(nmf, rays, is_train=True, bg_col=bg_col,
-                        draws=draws, bg_cache=bg_cache, ndc_ray=ndc_ray)
+                        draws=draws, bg_cache=bg_cache, ndc_ray=ndc_ray,
+                        gt_normals=gt_normals)
     rgb_map = ims["rgb_map"]
     B = rays.shape[0]
     sq = (torch.clamp(rgb_map, 0, 1) - torch.clamp(rgb_gt, 0, 1)) ** 2
-    total = sq.sum()
+    if weights.charbonier:
+        total = torch.sqrt((rgb_map - rgb_gt) ** 2
+                           + weights.charbonier_eps ** 2).sum()
+    else:
+        total = sq.sum()
     for weight_name, stat in _STAT_TERMS:
         w = getattr(weights, weight_name)
         if w:
             total = total + w * stats[stat]
+    if "visibility_loss" in stats:
+        total = total + weights.visibility_lambda * B * stats[
+            "visibility_loss"]
     for w, reg in ((weights.l1_weight, nmf.rf.density_L1),
                    (weights.ortho_weight, nmf.rf.vector_comp_diffs),
                    (weights.tv_weight_density, nmf.rf.tv_loss_density),
-                   (weights.tv_weight_app, nmf.rf.tv_loss_app)):
-        if w:
+                   (weights.tv_weight_app, nmf.rf.tv_loss_app),
+                   (weights.tv_weight_bg, getattr(nmf.bg_module, "tv_loss",
+                                                  None))):
+        if w and reg is not None:
             total = total + w * reg() * B
     total = total / B
     metrics = {"loss": total.detach(), "photo_mse": sq.detach().mean(),
                "n_valid_samples": stats["n_valid_samples"]}
-    for k in ("thin_scale", "thin_scale_retrace"):
+    for k in ("thin_scale", "thin_scale_retrace", "visibility_loss",
+              "bright_share"):
         if k in stats:
-            metrics[k] = stats[k]
+            metrics[k] = stats[k].detach()
     return total, metrics
 
 
 def train_step(nmf: NMF, opt: Optimizer, rays, rgb_gt, bg_col,
-               weights: LossWeights, draws, ndc_ray=False):
+               weights: LossWeights, draws, ndc_ray=False, gt_normals=None):
     """One step: loss, backward, optimizer update. A non-finite loss skips
     the update (parameters and optimizer state stay as they were)."""
     opt.zero_grad()
     loss, metrics = compute_loss(nmf, rays, rgb_gt, weights, bg_col,
-                                 draws=draws, ndc_ray=ndc_ray)
+                                 draws=draws, ndc_ray=ndc_ray,
+                                 gt_normals=gt_normals)
     loss.backward()
     if bool(torch.isfinite(loss.detach())):
         opt.step()

@@ -36,8 +36,9 @@ from nmf_tpu_torch import weights  # noqa: E402
 from nmf_tpu_torch.ops.draws import Draws  # noqa: E402
 from nmf_tpu_torch.render import reflection_fn  # noqa: E402
 from nmf_tpu_torch.render import render as trender  # noqa: E402
-from torch_parity import (build_flagship_pair, port_copy,  # noqa: E402
-                          render_draws, shade_draws)
+from torch_parity import (build_flagship_pair, jax_reflection,  # noqa: E402
+                          params_match, port_copy, render_draws,
+                          shade_draws, shade_inputs)
 
 B = 64
 DATASET = {"dataset_name": "synthetic_sphere", "n_views": 4,
@@ -98,39 +99,6 @@ def _grads_match(tn, jgrads, rtol=GRAD, loose=()):
         _close(tg.T if transpose else tg, g, tol, key)
 
 
-def _jax_reflection(jn, cache, is_train=True):
-    """nmf_tpu's render_reflection closure (render.py:313-327)."""
-    def reflect(bounce_rays, mipval, retrace, rkey):
-        if retrace:
-            ims, _ = jrender(jn, bounce_rays, rkey, is_train=is_train,
-                             bg_col=None, recur=1,
-                             override_near=3 * jn.sampler.live_stepsize,
-                             stepmul=jn.recur_stepmul, tonemap=False,
-                             start_mipval=mipval, bg_cache=cache)
-            return ims["rgb_map"], 1 - ims["acc_map"]
-        return jn.bg_module(bounce_rays[:, 3:6], mipval,
-                            cache=cache).reshape(-1, 3), None
-    return reflect
-
-
-def _shade_inputs(case, M, seed):
-    rng = np.random.default_rng(seed)
-    xyz = np.concatenate([rng.uniform(-0.9, 0.9, (M, 3)),
-                          rng.uniform(2.5, 4.0, (M, 1))], -1)
-    app = rng.normal(0, 0.3, (M, 24))
-    vd = rng.normal(size=(M, 3))
-    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
-    nrm = rng.normal(size=(M, 3))
-    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    w = rng.uniform(0, 0.3, M) ** 2
-    valid = rng.uniform(size=M) < 0.8
-    if case == "few_valid":
-        # so few rays that fewer slots than T = 32 are valid: the retrace
-        # buffer fills up with invalid slots, ties broken to the lowest index
-        w = np.where(rng.uniform(size=M) < 0.02, 0.01, 0.0)
-    return [a.astype(np.float32) for a in (xyz, app, vd, nrm, w)] + [valid]
-
-
 def test_reconstruction_on_cpu(tmp_path):
     # first in the file: before the JAX compiles, whose thread pools slow
     # the port's CPU ops that follow
@@ -173,7 +141,8 @@ def test_shade_matches_with_its_discrete_decisions(case, flagship,
     jn, tn, _ = _pair(flagship)
     M = 512
     key = jax.random.PRNGKey({"thinned": 5, "few_valid": 6}[case])
-    xyz, app, vd, nrm, w, valid = _shade_inputs(case, M, seed=len(case))
+    xyz, app, vd, nrm, w, valid = shade_inputs(
+        M, seed=len(case), few_valid=case == "few_valid")
     cot = np.random.default_rng(1).normal(size=(M, 3)).astype(np.float32)
     Cf = app.shape[-1]
 
@@ -203,7 +172,7 @@ def test_shade_matches_with_its_discrete_decisions(case, flagship,
         rgb, dbg = model.shade(
             jnp.asarray(xyz), n.rf.normalize_coord(jnp.asarray(xyz)), app_,
             jnp.asarray(vd), nrm_, w_, jnp.asarray(valid), M // 8,
-            render_reflection=_jax_reflection(n, cache),
+            render_reflection=jax_reflection(n, cache),
             bg_module=n.bg_module,
             bg_cache=cache, is_train=True, recur=0, key=key)
         parent, src = rec["gathers"][0]
@@ -376,13 +345,4 @@ def test_three_train_steps_match(flagship, rays):
         _grads_match(tn, jg, rtol=5e-4)
         jn, state = jupdate(jg, state, jn)
         topt.step()
-        move = 2 * max_lr * topt.sched(i)
-        jgd = jckpt.state_dict(jg)
-        for k, v in jckpt.state_dict(jn).items():
-            t, transpose = weights.port_tensor(tn, k)
-            tv = t.detach().numpy()
-            err = np.abs((tv.T if transpose else tv) - v)
-            gk = np.abs(jgd[k])
-            tight = gk >= 1e-3 * gk.max()
-            assert (err[tight] <= 1e-5 + 1e-5 * np.abs(v[tight])).all(), k
-            assert (err <= 1e-5 + move).all(), k
+        params_match(tn, jn, jg, 2 * max_lr * topt.sched(i))

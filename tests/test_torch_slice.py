@@ -213,10 +213,9 @@ def test_ported_targets_build(target):
 
 
 def test_unported_targets_raise():
-    # nmf_tpu's other brdf samplers come with a later slice
+    # nmf_tpu's Specular BRDF comes with a later slice
     cfg = ttrain.config_lib.compose([
-        *FLAGSHIP, "model.arch.model.brdf_sampler._target_="
-        "brdf_samplers.cosine.CosineLobeSampler"])
+        *FLAGSHIP, "model.arch.model.brdf._target_=modules.brdf.Specular"])
     with pytest.raises(NotImplementedError):
         tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
     if not torch.cuda.is_available():
@@ -226,9 +225,9 @@ def test_unported_targets_raise():
 
 
 @pytest.mark.parametrize("override", [
-    "model.arch.detach_inter=true",
-    "model.arch.model.diffuse_mixing_mode=fresnel_ind",
-    "model.arch.model.diffuse_mixing_mode=lambda",
+    "model.arch.hdr=true",
+    "model.arch.bg_module.mipnoise=0.1",
+    "model.arch.model.brdf.dotpe=0",
     "model.arch.mlp_dtype=bf16",
     "model.arch.sampler.superstep=2",
     "model.arch.sampler.fine_alpha_test=false"])

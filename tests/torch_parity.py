@@ -48,17 +48,29 @@ def close(a, b, rtol, what="", scale=None):
                                err_msg=what)
 
 
-def grads_match(tn, jgrads, rtol, loose=()):
+def grads_match(tn, jgrads, rtol, loose=(), scales=None):
     """Every nmf_tpu gradient against the port's (a tensor the port does
     not differentiate must have an exactly zero one there); ``loose``:
-    (key part, rtol) of tensors held to their own tolerance."""
+    (key part, rtol) of tensors held to their own tolerance; ``scales``:
+    {key: the scale its tolerance is relative to} (default max |g|)."""
+    scales = scales or {}
     for key, g in jckpt.state_dict(jgrads).items():
         tg = weights.port_grad(tn, key)
         if tg is None:
             assert not np.any(g), key
             continue
         tol = next((tl for k, tl in loose if k in key), rtol)
-        close(tg.numpy(), g, tol, key)
+        close(tg.numpy(), g, tol, key, scale=scales.get(key))
+
+
+def envmap_scalar_scales(jn, jgrads):
+    """The scales of the envmap's brightness and mul gradients: each sums
+    a term of every texel (exp(brightness + mul x) is the map), so they
+    are held relative to the sum of those terms' magnitudes, not to their
+    own value, which cancellation can make small."""
+    g = np.abs(np.asarray(jgrads.bg_module.bg_mat, np.float64))
+    x = np.abs(np.asarray(jn.bg_module.bg_mat, np.float64))
+    return {".bg_module.brightness": g.sum(), ".bg_module.mul": (g * x).sum()}
 
 
 def _u(key, shape):
@@ -111,7 +123,67 @@ def shade_draws(key, jn, M, is_train, recur=0, prefix=""):
         d[prefix + "tiebreak"] = _u(ks[4], (R,))
         d.update(render_draws(ks[4], jn, m.max_retrace_rays[recur],
                               is_train, recur + 1, prefix + "retrace/"))
+    if (getattr(m, "bright_sampler", None) is not None
+            and m.percent_bright > 0 and recur == 0):
+        # ERBrightSampler.sample splits its key three ways
+        kb = jax.random.split(ks[5], 3)
+        for name, k in zip(("u", "jy", "jx"), kb):
+            d[f"{prefix}bright/{name}"] = _u(k, (R,))
     return d
+
+
+def jax_reflection(jn, cache, is_train=True):
+    """nmf_tpu's render_reflection closure (render.py:313-327)."""
+    from nmf_tpu.render import render as jrender
+
+    def reflect(bounce_rays, mipval, retrace, rkey):
+        if retrace:
+            ims, _ = jrender(jn, bounce_rays, rkey, is_train=is_train,
+                             bg_col=None, recur=1,
+                             override_near=3 * jn.sampler.live_stepsize,
+                             stepmul=jn.recur_stepmul, tonemap=False,
+                             start_mipval=mipval, bg_cache=cache)
+            return ims["rgb_map"], 1 - ims["acc_map"]
+        return jn.bg_module(bounce_rays[:, 3:6], mipval,
+                            cache=cache).reshape(-1, 3), None
+    return reflect
+
+
+def shade_inputs(M, seed, few_valid=False):
+    """Flattened shading inputs of M samples: xyz (M, 4), appearance
+    features (M, 24), unit view directions and normals, weights, and a
+    validity mask (80% valid); ``few_valid``: so few weights that fewer
+    than 32 bounce slots are valid."""
+    rng = np.random.default_rng(seed)
+    xyz = np.concatenate([rng.uniform(-0.9, 0.9, (M, 3)),
+                          rng.uniform(2.5, 4.0, (M, 1))], -1)
+    app = rng.normal(0, 0.3, (M, 24))
+    vd = rng.normal(size=(M, 3))
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    nrm = rng.normal(size=(M, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    w = rng.uniform(0, 0.3, M) ** 2
+    valid = rng.uniform(size=M) < 0.8
+    if few_valid:
+        w = np.where(rng.uniform(size=M) < 0.02, 0.01, 0.0)
+    return [a.astype(np.float32) for a in (xyz, app, vd, nrm, w)] + [valid]
+
+
+def params_match(tn, jn, jgrads, move):
+    """Every tensor of the port after an optimizer step against nmf_tpu's:
+    within 1e-5 (+ 1e-5 relative) where nmf_tpu's gradient is at least
+    1e-3 of its tensor's largest; elsewhere within 1e-5 + ``move`` (Adam's
+    first steps are ~lr * sign(g), so an entry whose gradient lies within
+    rounding of 0 may move the other way)."""
+    jgd = jckpt.state_dict(jgrads)
+    for k, v in jckpt.state_dict(jn).items():
+        t, transpose = weights.port_tensor(tn, k)
+        tv = t.detach().numpy()
+        err = np.abs((tv.T if transpose else tv) - v)
+        gk = np.abs(jgd[k])
+        tight = gk >= 1e-3 * gk.max()
+        assert (err[tight] <= 1e-5 + 1e-5 * np.abs(v[tight])).all(), k
+        assert (err <= 1e-5 + move).all(), k
 
 
 def calibration_draws(key, n_points=10000):
