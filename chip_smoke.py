@@ -44,9 +44,22 @@
    with every loss extra, clip and weight decay (the first Adam moments
    too), card against CPU; a tiny run whose budget controller must grow
    the budgets at step 15; and ``python -m nmf_tpu_torch.train -m`` with
-   two tiny jobs, which must write two run folders. K3 is also held and
+   two tiny jobs, which must write two run folders; then the tiny
+   flagship with each knob of the budgets slice (hdr with the HDR and
+   Linear curves, bf16 MLP operands, superstep 0 / 2 / 8, no fine alpha
+   test, two-stage and merged shading, the retrace proposal with the
+   annealed pad), card against CPU. K3 is also held and
    timed at C = 1 (Russian roulette's retrace counts, N = 1,024 into the
    flagship's 393,216 samples).
+   The tiny checks run beside the main paths.
+4-20. The main paths run in three processes at once on the card (lanes,
+   LANES: a step is bound by the host's launches, so the lanes fill
+   each other's idle time), each lane's paths in turn: sphere (paths 4,
+   18, 11, 20, 17, 15), studio (7, 5, 6, 8, 9, 13, 10) and fields (14,
+   16, 19, 12). Two more processes generate the scenes of paths 5, 10,
+   19 and 12 on the host. Each path's kernel counts are its lane's.
+   A launch at a size that the kernel checks did not hold is held after
+   every lane is done, on the ids it launched with (below).
 4. Main paths, at the shipped widths on synthetic_sphere: model=tensorf
    (128^3 grid, 16/24 components, app_dim 24, featureC 128, 4096 rays x
    192 samples) for 300 iterations through one upsample to 300^3 and two
@@ -93,7 +106,8 @@
    generator's, alpha from its hit mask) and 4 test views written, loaded
    by the trainer with dataset=lego's yaml and put on the card (64M rays,
    2.56 GB); prints the load's seconds, traced host peak and the store's
-   bytes; 20 full-width flagship steps from that store, finite loss.
+   bytes; 10 full-width flagship steps from that store (cut from 20),
+   finite loss.
 8. The relight path, on the studio path's final checkpoint: pano2env's fit
    at its CLI defaults (1024 x 2048 texels, 1000 iterations of 65,536
    pixels) of the Blender path's lego_bg.exr, mirrored left to right
@@ -116,8 +130,8 @@
    against its panorama is printed.
 11. The occupancy-grid path: model=microfacet_tensorf (128^3 occupancy
    grid, multiplier 2, the normal MLP) at its shipped widths on
-   synthetic_sphere, 600 iterations through an upsample at 300 and a
-   shrink tick at 400 (threshold 0.05); prints the occupied share after
+   synthetic_sphere, 450 iterations (cut from 600) through an upsample at
+   225 and a shrink tick at 300 (threshold 0.05); prints the occupied share after
    every sweep and what the shrink did to the box (on this scene it crops
    a few voxels off a face in some runs and keeps the box in others).
    Then the crop, forced as nmf_tpu's own shrink test forces it: the
@@ -159,7 +173,7 @@
    at 150, rebuilds at 100 and 200), its pause checkpoint rendered in
    batch and streamed (render_only stream=true, K1 in full mode a block):
    the two within 0.1 dB; the streaming eval's seconds and blocks.
-18. The extras path (run before path 11): model=microfacet_tensorf2 at
+18. The extras path: model=microfacet_tensorf2 at
    its shipped widths on synthetic_sphere with every knob of the extras
    slice on (the visibility MLP, bright rays at percent_bright 0.5,
    Russian roulette, detach_N_iters 100, detach_inter, the ori / pred
@@ -169,9 +183,29 @@
    visibility loss and the bright-ray share, and fails unless the
    normals' detach ends in a schedule event at iteration 100. Its
    launches at the grown budgets' sizes are held after it.
-   Every K1 / K2 / K3 launch of paths 8 to 18 must be at a size held
-   before it or held after the path on the ids it launched with; each
-   must clear 17 dB.
+19. The hdr path: the studio scene's linear radiance
+   (the generator's, before the sRGB curve; the share of the foreground
+   past 1 is printed), 24 + 8 views of 128^2 written as EXR frames in
+   nerf_synthetic layout by a scene worker, through
+   dataset=materials_hdr with datadir set; the flagship at its shipped
+   widths with hdr (the Huber loss, the unclipped HDR curve), bf16 MLP
+   operands, superstep 8 and no fine alpha test, on the studio knobs: the
+   first 300 iterations of their 1000-iteration schedule, paused, then
+   render_only on the pause checkpoint, which writes an EXR of each test
+   view's rgb_map, read back equal to the map it rendered.
+20. The budgets path: the flagship at its shipped widths on
+   synthetic_sphere with merge_runs 32, the retrace proposal (48 of the
+   retrace pass's 96 samples) and the pad annealed from 0.5 to 0.01 over
+   133 iterations: the first 200 iterations of a 1000-iteration schedule
+   (the upsample at 100, no rebuild), paused, the pad printed at each
+   tenth, the model evaluated; then the pause checkpoint's config switched
+   to app_samples_per_ray 48 (two-stage) and 50 more steps resumed,
+   paused and evaluated. Both must clear 17 dB; at full width, the
+   two-stage render's acc_map of a test view must equal the full
+   render's, and setting both knobs must warn.
+   Every K1 / K2 / K3 launch of paths 8 to 20 must be at a size held
+   by the kernel checks or held after the lanes on the ids it launched
+   with; each must clear 17 dB.
 
 Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
@@ -187,7 +221,7 @@ import shutil
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -925,7 +959,7 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship",
         loss, m = trainer.compute_loss(
             nmf, rays, torch.from_numpy(rgb_np).to(d), weights,
             (1.0, 1.0, 1.0), draws=Draws(torch.Generator().manual_seed(1)),
-            gt_normals=None if norms is None else norms.to(d))
+            gt_normals=None if norms is None else norms.to(d), hdr=nmf.hdr)
         loss.backward()
         with torch.no_grad():
             image = render(nmf, rays, is_train=False,
@@ -1407,7 +1441,7 @@ BLENDER_DB = 0.5
 # sphere generator's, alpha from its hit mask) and a few test views,
 # loaded with dataset=lego's yaml, then full-width flagship steps from the
 # store on the card
-LEGO_VIEWS, LEGO_TEST_VIEWS, LEGO_SIZE, LEGO_STEPS = 100, 4, 800, 20
+LEGO_VIEWS, LEGO_TEST_VIEWS, LEGO_SIZE, LEGO_STEPS = 100, 4, 800, 10
 LEGO_DIR = LOG_DIR / "lego_size"
 
 
@@ -1620,12 +1654,12 @@ def lego_load_path(torch, config):
 
 # The occupancy-grid path: model=microfacet_tensorf (the NerfAcc-style
 # occupancy grid, 128^3, multiplier 2, a density sweep every 16 iterations,
-# and the normal MLP) at its shipped widths on synthetic_sphere. Cut as the
-# flagship path was: 600 iterations, one upsample at 300; and a shrink tick
-# at 400 (the shipped shrink_iters is [], nmf_tpu's tests/test_train.py
-# sets it), so the shrink and the optimizer rebuild after it run on the
-# card. (Cut to 450, an upsample at 225 and the shrink at 300, it fell from
-# ~31 to 18.7-19.0 dB.)
+# and the normal MLP) at its shipped widths on synthetic_sphere: 450
+# iterations, one upsample at 225; and a shrink tick at 300 (the shipped
+# shrink_iters is [], nmf_tpu's tests/test_train.py sets it), so the shrink
+# and the optimizer rebuild after it run on the card. (At 600 iterations,
+# the upsample at 300 and the shrink at 400, it reached ~31 dB; at this
+# cut, taken for the script's time, 18.7-19.0 dB.)
 # The occupancy threshold is raised from the shipped 0.01 to 0.05: at 0.01
 # the random field's density (~0.018 at build) keeps every cell occupied
 # through 600 iterations, so the grid culls nothing. At 0.05 the grid
@@ -1634,7 +1668,7 @@ def lego_load_path(torch, config):
 # shrink crops a few voxels off +z in most runs and keeps the whole box
 # in some. The path prints what the shrink did and does not depend on
 # it: the crop runs deterministically in the path after it.
-OCCGRID_ITERS = 600
+OCCGRID_ITERS = 450
 OCCGRID = ["model=microfacet_tensorf", "dataset=synthetic_sphere",
            f"model.params.n_iters={OCCGRID_ITERS}",
            f"field.upsamp_list=[{OCCGRID_ITERS // 2}]",
@@ -1984,7 +2018,9 @@ STREAM_DB = 0.1  # streamed against batch test PSNR
 # TV, the normal error (the sphere's split carries no normals, so the term
 # is zero here; the small check holds it on the card), weight decay and
 # the budget controller. Cut as the flagship path: 450 iterations, the
-# upsample at half, no rebuild (C.2).
+# upsample at half, no rebuild (C.2). (At 400 iterations, the upsample at
+# 200, it stayed at 15.2 dB on an H100: this path's PSNR climbs only
+# after the upsample.)
 EXTRAS_ITERS = FLAGSHIP_ITERS
 EXTRAS = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
           f"model.params.n_iters={EXTRAS_ITERS}",
@@ -2432,6 +2468,44 @@ def check_small_extras(torch, dev):
     return errs
 
 
+# The budgets slice's knobs, each alone in the tiny flagship: hdr with
+# the HDR and the Linear curves, bf16 MLP operands, the march's superstep
+# and its fine alpha test, two-stage and merged shading (4 of the 8
+# proposal samples), the retrace proposal (4 of the 8 retrace samples)
+# with the annealed pad
+HDR_CURVE = "model.arch.tonemap._target_=modules.tonemap.HDRTonemap"
+PAD_ANNEAL = ["model.arch.proposal_pad_init=0.5",
+              "model.arch.proposal_pad_iters=10"]
+SMALL_BUDGET_OPTIONS = (
+    ["model.arch.hdr=true", HDR_CURVE],
+    ["model.arch.hdr=true",
+     "model.arch.tonemap._target_=modules.tonemap.LinearTonemap"],
+    ["model.arch.mlp_dtype=bf16"],
+    *([f"model.arch.sampler.superstep={n}"] for n in (0, 2, 8)),
+    ["model.arch.sampler.fine_alpha_test=false"],
+    ["model.arch.app_samples_per_ray=4"], ["model.arch.merge_runs=4"],
+    ["model.arch.recur_proposal_samples_per_ray=4", *PAD_ANNEAL])
+
+
+def check_small_budgets(torch, dev):
+    """The budgets slice on the card against the CPU: one train step and
+    one eval render of the tiny flagship with each knob of
+    ``SMALL_BUDGET_OPTIONS`` (``check_small_flagship``). bf16 operands'
+    gradients are held to 5e-2 of each tensor's largest: the card's and
+    the CPU's f32 products differ in their last bits, which flips some
+    bf16 roundings of the next layer's inputs (2^-8 each). Prints and
+    returns {check: max_abs_err}."""
+    errs = {}
+    for extra in SMALL_BUDGET_OPTIONS:
+        what = "flagship " + " ".join(o.rsplit(".", 1)[-1] for o in extra)
+        errs[what] = check_small_flagship(
+            torch, dev, extra, what,
+            grad_rtol=5e-2 if "mlp_dtype=bf16" in extra[0] else 1e-3)
+    for what, err in errs.items():
+        print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
+    return errs
+
+
 MULTIRUN_DIR = LOG_DIR / "multirun"
 
 
@@ -2703,31 +2777,305 @@ def lego2_split(split):
                               env_yaw_deg=DUAL_YAW)
 
 
-# The later paths' scenes are generated on the host by a worker process
-# while the card trains the main paths (generated in line they took ~64 s
-# of the script): the studio scene and its turned-light copy into the
-# dataset cache, the LLFF scene to disk.
-def prepare_scenes(cache_dir):
-    """Generate the studio path's scene, the dual_scene path's lego2 and
-    the LLFF path's scene in this process; returns their seconds."""
+# The later paths' scenes are generated on the host by two worker
+# processes (SCENE_WORKERS) while the card trains the first paths of each
+# lane (generated in line they took ~80 s of the script): the studio
+# scene and its turned-light copy, the hdr path's EXR frames and the LLFF
+# scene, each marked done in SCENE_MARKS (its seconds, or the error that
+# stopped it), where a lane waits for it (``wait_mark``).
+SCENE_WORKERS = (("studio", "lego2"), ("hdr", "llff"))
+SCENE_MARKS = LOG_DIR / "marks"
+
+
+def mark(name, info):
+    """Publish ``info`` (JSON) as the mark ``name``, atomically."""
+    SCENE_MARKS.mkdir(parents=True, exist_ok=True)
+    tmp = SCENE_MARKS / f".{name}.{os.getpid()}"
+    tmp.write_text(json.dumps(info))
+    os.replace(tmp, SCENE_MARKS / f"{name}.json")
+
+
+def wait_mark(name, timeout=900.0):
+    """Wait for the mark ``name`` and return its info; fails if it holds
+    an error or does not come within ``timeout`` seconds."""
+    path, t0 = SCENE_MARKS / f"{name}.json", time.time()
+    while not path.exists():
+        if time.time() - t0 > timeout:
+            fail(f"{name}: not marked done within {timeout:.0f} s")
+        time.sleep(0.2)
+    info = json.loads(path.read_text())
+    if "error" in info:
+        fail(f"{name}: {info['error']}")
+    return info
+
+
+def prepare_scenes(cache_dir, names):
+    """Generate the scenes ``names`` in this process, in order, marking
+    each done with its seconds: the studio scene and lego2 into the
+    dataset cache, the hdr path's frames and the LLFF scene to disk."""
+    import traceback
+
     os.environ["NMF_DATASET_CACHE"] = cache_dir
+    sys.stdout.reconfigure(line_buffering=True)
     from nmf_tpu_torch import config
     from nmf_tpu_torch.data import load_dataset
 
-    seconds = {}
-    t0 = time.time()
-    studio = config.compose([*STUDIO, "expname=studio"])["dataset"]
-    for split in ("train", "test"):
-        load_dataset(studio, None, split)
-    seconds["studio (2 splits x 24 views of 128^2)"] = time.time() - t0
-    t0 = time.time()
-    for split in ("train", "test"):
-        lego2_split(split)
-    seconds["lego2 (2 splits x 12 views of 128^2)"] = time.time() - t0
-    t0 = time.time()
-    write_llff_scene(config)
-    seconds["llff (20 views of 4032 x 3024)"] = time.time() - t0
-    return {k: round(v, 1) for k, v in seconds.items()}
+    def studio():
+        ds = config.compose([*STUDIO, "expname=studio"])["dataset"]
+        for split in ("train", "test"):
+            load_dataset(ds, None, split)
+
+    def lego2():
+        for split in ("train", "test"):
+            lego2_split(split)
+
+    makers = {"studio": studio, "lego2": lego2,
+              "hdr": lambda: {"over": write_hdr_scene(config)},
+              "llff": lambda: write_llff_scene(config)}
+    for name in names:
+        t0 = time.time()
+        try:
+            info = makers[name]() or {}
+        except Exception:
+            mark(name, {"error": traceback.format_exc()})
+            raise
+        mark(name, info | {"seconds": round(time.time() - t0, 1)})
+
+
+# The hdr path: the studio scene's linear radiance (the generator's
+# foreground before the sRGB curve, values past 1 kept) as 32-bit EXR
+# frames in nerf_synthetic layout, 24 train and 8 test views of 128^2
+# (the studio path's cameras), read through dataset=materials_hdr with
+# datadir set and the studio scene's near_far. The flagship at its
+# shipped widths with hdr (the Huber loss, the HDR curve without the
+# clip), bf16 MLP operands, superstep 8 and no fine alpha test, on the
+# studio knobs: the first HDR_ITERS iterations of their 1000-iteration
+# schedule (three upsamples, the first mask rebuild), paused, then
+# render_only on the pause checkpoint, which writes the EXR dumps. (A run
+# whose whole schedule is a few hundred iterations decays the learning
+# rate before the flagship fits this scene: 200 of 200 iterations left
+# it at its first-step PSNR, ~10.5 dB, on an H100.)
+HDR_ITERS = 300
+HDR_VIEWS = {"train": 24, "test": 8}
+HDR = [*STUDIO_KNOBS, "dataset=materials_hdr", f"datadir={DATA_DIR}",
+       "dataset.near_far=[1.4,5.0]", "model.arch.hdr=true", HDR_CURVE,
+       "model.arch.mlp_dtype=bf16", "model.arch.sampler.superstep=8",
+       "model.arch.sampler.fine_alpha_test=false",
+       f"stop_iter={HDR_ITERS}", "expname=hdr"]
+
+
+def write_hdr_scene(config):
+    """Write the hdr path's scene (``make_shiny_dataset(linear=True)`` of
+    the studio scene, its cameras) as EXR frames; returns the share of its
+    foreground channels past 1."""
+    import numpy as np
+
+    from nmf_tpu_torch.data.blender import save_blender_split
+    from nmf_tpu_torch.data.synthetic import make_shiny_dataset
+
+    cfg = config.compose(HDR)
+    over = []
+    for split, n in HDR_VIEWS.items():
+        gen = make_shiny_dataset(n_views=n, H=128, W=128, split=split,
+                                 hemisphere=True, scene="studio",
+                                 linear=True)
+        rgba = gen["all_rgbs"]
+        over.append(rgba[rgba[:, 3] > 0.5, :3] > 1)
+        save_blender_split(DATA_DIR / cfg["dataset"]["scenedir"], split,
+                           gen["poses"], rgba.reshape(n, 128, 128, 4),
+                           np.deg2rad(55.0), exr=True)
+    return float(np.concatenate(over).mean())
+
+
+@contextlib.contextmanager
+def kept_renders(eval_lib, maps):
+    """Within the block, every ``eval_lib.render_image`` result is
+    appended to ``maps``."""
+    render_image = eval_lib.render_image
+
+    def kept(*args, **kwargs):
+        out = render_image(*args, **kwargs)
+        maps.append(out)
+        return out
+
+    eval_lib.render_image = kept
+    try:
+        yield
+    finally:
+        eval_lib.render_image = render_image
+
+
+def hdr_path(config):
+    """The hdr path's run for ``drive_main_path`` (its scene written by
+    ``prepare_scenes``): the paused training and render_only on its
+    checkpoint, which must write one EXR a test view, each read back equal
+    to the rgb_map it rendered."""
+    import numpy as np
+
+    from nmf_tpu_torch import train
+    from nmf_tpu_torch.data.exr import read_exr
+
+    def run(log):
+        paused = train.reconstruction(config.compose(HDR), log=log)[1]
+        if paused.get("paused_at") != HDR_ITERS:
+            fail(f"hdr: the run did not pause at {HDR_ITERS}: {paused}")
+        name = "materials_hdr_hdr"
+        maps = []
+        with kept_renders(train.eval_lib, maps):
+            res = train.dispatch(config.compose([
+                *HDR, "render_only=True", "expname=hdr_render",
+                f"ckpt={LOG_DIR / name / f'{name}_latest.th'}"]),
+                log=log)[1]
+        out = LOG_DIR / "materials_hdr_hdr_render" / "imgs_render"
+        dumps = sorted(out.glob("[0-9][0-9][0-9].exr"))
+        if not dumps or len(dumps) != len(maps):
+            fail(f"hdr: {len(dumps)} EXR dumps for {len(maps)} test views")
+        for path, m in zip(dumps, maps):
+            if not np.array_equal(read_exr(path), m["rgb_map"]):
+                fail(f"hdr: {path.name} does not read back as its rgb_map")
+        top = max(float(m["rgb_map"].max()) for m in maps)
+        print(f"hdr: {len(dumps)} EXR dumps read back equal to the rendered "
+              f"rgb_map, largest value {top:.3f}")
+        res.update({k: paused[k] for k in
+                    ("loss", "rays_per_sec", "thin_scale",
+                     "thin_scale_retrace") if k in paused})
+        return res, paused["train_seconds"], (
+            f", {len(dumps)} EXR dumps equal, largest {top:.3f}")
+
+    return run
+
+
+# The budgets path: the flagship at its shipped widths on synthetic_sphere
+# with run-collapsed shading (merge_runs 32 of the proposal's 96 samples),
+# the retrace proposal (48 of the retrace pass's 96) and the pad annealed
+# from 0.5 to the shipped 0.01 over two thirds of the merged run: the
+# first 200 iterations of a 1000-iteration schedule (as the hdr path; the
+# upsample at 100, no rebuild, C.2), paused and evaluated; then the same
+# parameters with two-stage shading (app_samples_per_ray 48 in place of
+# merge_runs, written into the pause checkpoint's config) for 50 more
+# steps, paused and evaluated. Users: runs that trade shading samples for
+# step time.
+BUDGETS_ITERS, BUDGETS_TWO_STAGE, BUDGETS_SCHEDULE = 200, 50, 1000
+MERGE_RUNS, APP_SAMPLES = 32, 48
+BUDGETS = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
+           f"model.params.n_iters={BUDGETS_SCHEDULE}",
+           f"field.upsamp_list=[{BUDGETS_ITERS // 2}]",
+           "model.arch.sampler.update_list=[]",
+           "model.arch.recur_proposal_samples_per_ray=48",
+           "model.arch.proposal_pad_init=0.5",
+           f"model.arch.proposal_pad_iters={2 * BUDGETS_ITERS // 3}",
+           "device=cuda", f"basedir={LOG_DIR}", "expname=budgets",
+           "progress_refresh_rate=100"]
+MERGED = [f"model.arch.merge_runs={MERGE_RUNS}", f"stop_iter={BUDGETS_ITERS}"]
+TWO_STAGE = ["model.arch.merge_runs=0",
+             f"model.arch.app_samples_per_ray={APP_SAMPLES}", "resume=true",
+             f"stop_iter={BUDGETS_ITERS + BUDGETS_TWO_STAGE}"]
+
+
+@contextlib.contextmanager
+def pad_records(render, pads, every):
+    """Within the block, (iteration, annealed pad) after each schedule
+    tick at a multiple of ``every`` is appended to ``pads``."""
+    tick = render.NMF.check_schedule
+
+    def recorded(self, iteration):
+        changed = tick(self, iteration)
+        if iteration % every == 0:
+            pads.append((iteration, float(self.proposal_pad_cur.detach())))
+        return changed
+
+    render.NMF.check_schedule = recorded
+    try:
+        yield
+    finally:
+        render.NMF.check_schedule = tick
+
+
+def budgets_path(config):
+    """The budgets path's run for ``drive_main_path`` (its results: the
+    two-stage run's eval; the merged run's eval must clear the bar too). Then, on the trained model at full width: the two-stage render's
+    acc_map of the first test view equals the full render's, bit for bit,
+    and setting both knobs warns."""
+    import warnings
+
+    import torch
+
+    from nmf_tpu_torch import ckpt, render, train
+    from nmf_tpu_torch.data import load_dataset
+    from nmf_tpu_torch.ops.draws import Draws
+
+    # bound before drive_main_path wraps it, so the launch counts it reads
+    # at its first evaluation are those of the whole path
+    evaluate_fn = train.eval_lib.evaluate
+
+    def run(log):
+        pads = []
+        cfg = config.compose([*BUDGETS, *MERGED])
+        with pad_records(render, pads, BUDGETS_ITERS // 10):
+            nmf, paused = train.reconstruction(cfg, log=log)
+        if paused.get("paused_at") != BUDGETS_ITERS:
+            fail(f"budgets: the merged run did not pause: {paused}")
+        print("budgets: proposal pad at each tenth of the merged run "
+              + " ".join(f"{i}: {p:.4f}" for i, p in pads))
+        test = load_dataset(cfg["dataset"], None, "test")
+
+        def evaluate(nmf, label):
+            return evaluate_fn(
+                nmf, test, save_dir=str(LOG_DIR / f"budgets_{label}"),
+                n_vis=cfg["N_vis"], seed=int(cfg["seed"]))
+
+        merged = evaluate(nmf, "merged")
+        print(f"budgets: merged shading (merge_runs {MERGE_RUNS}), test PSNR "
+              f"{merged['psnr']:.2f} dB at {BUDGETS_ITERS} iterations")
+        if not merged["psnr"] > PSNR_BAR:
+            fail(f"budgets: merged test PSNR {merged['psnr']} <= {PSNR_BAR}")
+        # the same parameters, two-stage shading in place of the merge
+        name = "synthetic_sphere_budgets"
+        latest = LOG_DIR / name / f"{name}_latest.th"
+        two_cfg = config.compose([*BUDGETS, *TWO_STAGE])
+        dev = torch.device(two_cfg["device"])
+        saved, _, extra = ckpt.load(latest, device=dev)
+        ckpt.save(latest, saved, two_cfg, extra=extra)
+        nmf, paused2 = train.reconstruction(two_cfg, log=log)
+        if paused2.get("paused_at") != BUDGETS_ITERS + BUDGETS_TWO_STAGE:
+            fail(f"budgets: the two-stage run did not pause: {paused2}")
+        res = evaluate(nmf, "two_stage") | {
+            k: paused2[k] for k in ("loss", "rays_per_sec", "thin_scale",
+                                    "thin_scale_retrace") if k in paused2}
+        W, H = test["img_wh"]
+        rays = torch.from_numpy(test["all_rays"][:W * H]).to(dev)
+        acc = []
+        with torch.no_grad():
+            for app in (APP_SAMPLES, -1):
+                nmf.app_samples_per_ray = app
+                acc.append(torch.cat([render.render(
+                    nmf, rays[i:i + 4096], draws=Draws(
+                        torch.Generator(device=dev).manual_seed(i)),
+                    bg_cache=nmf.bg_module.prepare())[0]["acc_map"]
+                    for i in range(0, rays.shape[0], 4096)]))
+            if not torch.equal(*acc):
+                fail("budgets: the two-stage acc_map differs from the full "
+                     f"render's by {float((acc[0] - acc[1]).abs().max())}")
+            nmf.app_samples_per_ray, nmf.merge_runs = APP_SAMPLES, MERGE_RUNS
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                render.render(nmf, rays[:4096], draws=Draws(
+                    torch.Generator(device=dev).manual_seed(0)),
+                    bg_cache=nmf.bg_module.prepare())
+        if not any("merge_runs takes precedence" in str(w.message)
+                   for w in caught):
+            fail("budgets: no UserWarning with both knobs set")
+        print(f"budgets: two-stage (app_samples_per_ray {APP_SAMPLES}) test "
+              f"PSNR {res['psnr']:.2f} dB after {BUDGETS_TWO_STAGE} more steps; "
+              "its acc_map of test view 0 equals the full render's; both "
+              "knobs set warn")
+        if not res["psnr"] > PSNR_BAR:
+            fail(f"budgets: two-stage test PSNR {res['psnr']} <= {PSNR_BAR}")
+        return res, paused["train_seconds"] + paused2["train_seconds"], (
+            f", merged {merged['psnr']:.2f} dB, pad at the pause "
+            f"{pads[-1][1]:.4f}")
+
+    return run
 
 
 def dual_path(config):
@@ -2803,6 +3151,253 @@ def dual_path(config):
     return run
 
 
+# ---- the lanes: the main paths run in the LANES' processes at once
+# on the one card, each lane's paths in turn. A step of these paths is
+# bound by the host's launches (PERF.md section 5: the card is busy
+# 13-41% of a flagship step), so the lanes' steps fill each other's idle
+# time (the processes time-slice the card: a step takes ~1.9x its time
+# alone with three lanes, on an H100). A lane
+# drives its paths through ``drive_main_path`` with the kernels' counts of
+# its own process; a launch at a size the kernels' checks did not hold is
+# recorded there (K3 on its ids, moved to the host) and held by the main
+# process after every lane is done (``hold_new_sizes``), so no device time
+# is read while the lanes run. Each lane's paths in the order they depend
+# on each other (the studio path's checkpoint, the occgrid model, the
+# marked scenes); the largest on the card, refnerf_tcnn, allocates
+# ~8 GiB in a lane's process.
+# the paths in the order the main process holds them and reports them
+PATH_ORDER = ("tensorf", "microfacet_tensorf2", "studio", "blender",
+              "lego_size", "relight", "compose", "dual_scene", "hdr",
+              "budgets", "extras", "occgrid", "occgrid_crop", "llff",
+              "refnerf_studio", "refnerf_tcnn", "dualref", "grid",
+              "tensorf_pe")
+
+
+def host_entry(entry):
+    """A BinsumRecorder entry with its ids on the host, to send."""
+    step, idx, C, R, dtype = entry
+    return step, idx.cpu().numpy(), C, R, str(dtype).removeprefix("torch.")
+
+
+def device_entry(torch, dev, entry):
+    """``host_entry``'s inverse, on ``dev``."""
+    step, idx, C, R, dtype = entry
+    return step, torch.from_numpy(idx).to(dev), C, R, getattr(torch, dtype)
+
+
+class Lane:
+    """One lane's kernels (each with the sizes the main process's checks
+    held, and those first launched by this lane's earlier paths) and its
+    report: for each path driven, its launches, and its launches at new
+    sizes to hold."""
+
+    def __init__(self, torch, held, card):
+        from nmf_tpu_torch.ops.kernels import binsum as S
+        from nmf_tpu_torch.ops.kernels import composite as C
+
+        self.torch, self.card, self.report = torch, card, []
+        self.kernels = [
+            {"name": name, "kernel": kernel,
+             "shapes": [{"sizes": tuple(s)} for s in held[name]]}
+            for name, kernel in (("composite_fwd", C.COMPOSITE_FWD),
+                                 ("composite_bwd", C.COMPOSITE_BWD),
+                                 ("binsum_rows", S.BINSUM))]
+
+    def drive(self, label, run, n_iters, steps=(), hold=True, new_k3=True,
+              **kw):
+        """``drive_main_path`` with K3's ids recorded at the train steps
+        ``steps`` and (``new_k3``) at sizes not held yet; given ``hold``,
+        the launches at new sizes are taken as held here and reported, to
+        be held after the lanes. Returns the path's results."""
+        torch = self.torch
+        binsum = self.kernels[-1]
+        held = {r["sizes"] for r in binsum["shapes"]} if new_k3 else None
+        with BinsumRecorder(steps, held=held) as rec:
+            launches, by_size, res = drive_main_path(
+                torch, self.kernels, label, self.card, n_iters, run,
+                hold=(lambda sizes: self.pend(label, sizes, rec)) if hold
+                else None, **kw)
+        self.report.append({
+            "label": label, "launches": launches, "by_size": by_size,
+            "held_after": hold, "touched": dict(rec.touched),
+            "new": {size: host_entry(e) for size, e in rec.new.items()},
+            "recorded": [host_entry(e) for e in rec.entries]})
+        del rec
+        torch.cuda.empty_cache()
+        return res
+
+    def pend(self, label, by_size, rec):
+        """The new sizes of a path's launches (``by_size``; K3's recorded
+        by ``rec``) join the lane's kernels' shapes. Fails if no launch at
+        a new K3 size touched HELD_MIN_ROWS rows."""
+        n_new = 0
+        for k in self.kernels:
+            held = {r["sizes"] for r in k["shapes"]}
+            new = (set(rec.new) if k["name"] == "binsum_rows"
+                   else set(by_size[k["name"]])) - held
+            k["shapes"] += [{"sizes": s} for s in sorted(new)]
+            n_new += len(new)
+        for size, touched in rec.touched.items():
+            if touched < HELD_MIN_ROWS:
+                fail(f"{label}: no K3 launch at size {size} touched "
+                     f"{HELD_MIN_ROWS} rows (at most {touched}), so its "
+                     "recorded ids cannot hold the kernel")
+        print(f"{label}: {n_new} kernel sizes first launched on this path, "
+              "held after the lanes")
+
+
+def lane_sphere(lane, config):
+    """tensorf and the flagship (MAIN_PATHS) with the flagship's K3 ids of
+    REPLAY_STEPS recorded, the logged rays and the orbit, then the extras,
+    occgrid, occgrid_crop, budgets, tensorf_pe and dualref paths."""
+    from nmf_tpu_torch.ops.kernels import composite as C
+    from nmf_tpu_torch.train import reconstruction
+
+    for label, overrides in MAIN_PATHS:
+        cfg = config.compose([*overrides, "dataset=synthetic_sphere",
+                              "device=cuda", f"basedir={LOG_DIR}",
+                              f"expname={label}",
+                              "progress_refresh_rate=100"])
+
+        def run(log, cfg=cfg):
+            res = reconstruction(cfg, log=log)[1]
+            return res, res["train_seconds"], ""
+
+        flagship = label == "microfacet_tensorf2"
+        lane.drive(label, run, int(cfg["model"]["params"]["n_iters"]),
+                   steps=REPLAY_STEPS if flagship else (), new_k3=False)
+        if flagship and not lane.report[-1]["recorded"]:
+            fail(f"no K3 launch was recorded at flagship steps "
+                 f"{REPLAY_STEPS}")
+    check_logged_rays()
+    check_orbit()
+    trained = {}
+    lane.drive("extras", extras_path(config), EXTRAS_ITERS)
+    lane.drive("occgrid", occgrid_path(config, trained), OCCGRID_ITERS)
+    lane.drive("occgrid_crop", occgrid_crop_path(lane.torch, config, trained),
+               CROP_STEPS)
+    lane.drive("budgets", budgets_path(config),
+               BUDGETS_ITERS + BUDGETS_TWO_STAGE)
+    lane.drive("tensorf_pe", tensorf_pe_path(config, C.COMPOSITE_FWD),
+               TENSORF_PE_ITERS)
+    lane.drive("dualref", dualref_path(config), DUALREF_ITERS)
+
+
+def lane_studio(lane, config):
+    """The lego-size load, then the studio path (its K3 ids of
+    STUDIO_REPLAY_STEPS recorded) and what reads its checkpoint or its
+    scene: the Blender path, relight, compose, refnerf_studio and
+    dual_scene (lego2 and the Blender path's scene)."""
+    lane.drive("lego_size", lego_load_path(lane.torch, config), LEGO_STEPS,
+               hold=False, new_k3=False, psnr_bar=None)
+    print(f"studio scene: generated by a scene worker in "
+          f"{wait_mark('studio')['seconds']} s")
+    studio = lane.drive("studio", studio_path(config), STUDIO_ITERS,
+                        steps=STUDIO_REPLAY_STEPS, hold=False, new_k3=False)
+    if not lane.report[-1]["recorded"]:
+        fail(f"no K3 launch was recorded at studio steps "
+             f"{STUDIO_REPLAY_STEPS}")
+    write_blender_scene(config)
+    blender = lane.drive("blender", blender_path(config),
+                         STUDIO_ITERS - STUDIO_PAUSE, hold=False,
+                         new_k3=False)
+    gap = blender["psnr"] - studio["psnr"]
+    print(f"blender vs studio test PSNR: {blender['psnr']:.2f} - "
+          f"{studio['psnr']:.2f} = {gap:+.2f} dB (bar {BLENDER_DB} dB)")
+    if not abs(gap) <= BLENDER_DB:
+        fail(f"blender: test PSNR {blender['psnr']} is not within "
+             f"{BLENDER_DB} dB of the studio path's {studio['psnr']}")
+    # the fit launches K3 (its backward), the renders K1
+    lane.drive("relight", relight_path(config, studio), FIT_ITERS,
+               runs=("binsum_rows", "composite_fwd"))
+    lane.drive("compose", compose_path(), COMPOSE_FRAMES, psnr_bar=None,
+               trains=False, runs=("composite_fwd",))
+    lane.drive("refnerf_studio", refnerf_studio_path(config, studio),
+               REFNERF_STUDIO_ITERS)
+    print(f"lego2: generated by a scene worker in "
+          f"{wait_mark('lego2')['seconds']} s")
+    lane.drive("dual_scene", dual_path(config), DUAL_ITERS)
+
+
+def lane_fields(lane, config):
+    """refnerf_tcnn and grid, then the paths on the workers' scene files:
+    hdr and llff."""
+    lane.drive("refnerf_tcnn", refnerf_tcnn_path(lane.torch, config),
+               REFNERF_TCNN_ITERS)
+    lane.drive("grid", grid_path(lane.torch, config), GRID_ITERS)
+    hdr = wait_mark("hdr")
+    print(f"hdr: scene written by a scene worker in {hdr['seconds']} s, "
+          f"{hdr['over']:.4f} of its foreground channels past 1")
+    lane.drive("hdr", hdr_path(config), HDR_ITERS)
+    print(f"llff: scene written by a scene worker in "
+          f"{wait_mark('llff')['seconds']} s")
+    lane.drive("llff", llff_path(lane.torch, config), LLFF_ITERS)
+
+
+LANES = {"sphere": lane_sphere, "studio": lane_studio,
+         "fields": lane_fields}
+
+
+def run_lane(name, held, card, conn):
+    """A lane's process: its paths (``LANES[name]``), then its report sent
+    on ``conn``."""
+    sys.stdout.reconfigure(line_buffering=True)
+    import torch
+
+    from nmf_tpu_torch import config
+
+    lane = Lane(torch, held, card)
+    t0 = time.time()
+    LANES[name](lane, config)
+    print(f"chip_smoke: lane {name} done in {time.time() - t0:.1f} s")
+    conn.send(lane.report)
+    conn.close()
+
+
+def start_lanes(held, card):
+    """Start the SCENE_WORKERS and a process for each of LANES (given
+    the sizes each kernel's check ``held``); returns {name: (process,
+    reader)}. The processes are daemons: they end with this one."""
+    ctx = multiprocessing.get_context("spawn")
+    for names in SCENE_WORKERS:
+        ctx.Process(target=prepare_scenes,
+                    args=(os.environ["NMF_DATASET_CACHE"], names),
+                    daemon=True).start()
+    lanes = {}
+    for name in LANES:
+        reader, writer = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=run_lane, args=(name, held, card, writer),
+                           daemon=True)
+        proc.start()
+        writer.close()
+        lanes[name] = (proc, reader)
+    return lanes
+
+
+def finish_lanes(lanes):
+    """Wait for every lane's report; fails as soon as a lane ends without
+    one. Returns the reports' paths by label."""
+    from multiprocessing.connection import wait
+
+    paths, waiting = {}, {reader: name for name, (_, reader) in lanes.items()}
+    while waiting:
+        for reader in wait(list(waiting)):
+            name = waiting.pop(reader)
+            proc = lanes[name][0]
+            try:
+                report = reader.recv()
+            except EOFError:
+                proc.join()
+                fail(f"lane {name} ended with exit code {proc.exitcode} "
+                     "and no report")
+            proc.join()
+            paths.update({r["label"]: r for r in report})
+    missing = set(PATH_ORDER) - set(paths)
+    if missing:
+        fail(f"no lane drove the paths {sorted(missing)}")
+    return paths
+
+
 def main():
     import torch
 
@@ -2810,11 +3405,10 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
+    sys.stdout.reconfigure(line_buffering=True)  # beside the lanes' lines
     sys.path.insert(0, str(ROOT))
     try:
-        from nmf_tpu_torch import config
         from nmf_tpu_torch.ops.kernels import build
-        from nmf_tpu_torch.train import reconstruction
     except ImportError as e:
         fail(f"nmf_tpu_torch is not importable next to this script ({e})")
     dev = torch.device("cuda", 0)
@@ -2851,131 +3445,55 @@ def main():
     kernels = (check_composite(torch, dev, gen, deferred)
                + check_binsum(torch, dev, gen, deferred))
     print(f"chip_smoke: kernel checks done at {time.time() - t_start:.1f} s")
+
+    # ---- the main paths, in the lanes' processes beside the tiny
+    # checks; each kernel's count is set to 0 just before a path and read
+    # just after it, in the lane that drives it ----
+    shutil.rmtree(LOG_DIR, ignore_errors=True)
+    os.environ["NMF_DATASET_CACHE"] = str(LOG_DIR / "dataset_cache")
+    lanes = start_lanes({k["name"]: sorted({r["sizes"] for r in k["shapes"]})
+                         for k in kernels}, card)
     t_multirun, multirun = time.time(), start_multirun(dev)
-    print(f"small path, card vs CPU: max_abs_err {check_small_path(torch, dev):.3e}")
+    print("small path, card vs CPU: max_abs_err "
+          f"{check_small_path(torch, dev):.3e}")
     print("small flagship, card vs CPU: max_abs_err "
           f"{check_small_flagship(torch, dev):.3e}")
     check_small_slice(torch, dev)
     check_small_relight(torch, dev)
     check_small_extras(torch, dev)
+    check_small_budgets(torch, dev)
     check_multirun(multirun, t_multirun)
     print(f"chip_smoke: tiny checks done at {time.time() - t_start:.1f} s")
+    reports = finish_lanes(lanes)
+    print(f"chip_smoke: lanes done at {time.time() - t_start:.1f} s")
 
-    # ---- the main paths: full-width training + test eval, tensorf then
-    # the microfacet flagship; each kernel's count is set to 0 just before
-    # a path and read just after it ----
-    shutil.rmtree(LOG_DIR, ignore_errors=True)
-    cache = str(LOG_DIR / "dataset_cache")
-    os.environ["NMF_DATASET_CACHE"] = cache
-    scene_pool = ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
-    scenes = scene_pool.submit(prepare_scenes, cache)
-    launches, by_size, recorded = {}, {}, []
-    for label, overrides in MAIN_PATHS:
-        cfg = config.compose([*overrides, "dataset=synthetic_sphere",
-                              "device=cuda", f"basedir={LOG_DIR}",
-                              f"expname={label}",
-                              "progress_refresh_rate=100"])
-        # the flagship's K3 ids of one step before the upsample, one after
-        recorder = BinsumRecorder(REPLAY_STEPS if label == "microfacet_tensorf2"
-                                  else ())
-
-        def run(log, cfg=cfg):
-            res = reconstruction(cfg, log=log)[1]
-            return res, res["train_seconds"], ""
-
-        # the ray logger's bundle marches the whole box: K1 at (512, the
-        # march's steps), held after the path
-        with recorder:
-            launches[label], by_size[label], _ = drive_main_path(
-                torch, kernels, label, card,
-                int(cfg["model"]["params"]["n_iters"]), run,
-                hold=lambda sizes, label=label, rec=recorder: hold_new_sizes(
-                    torch, dev, gen, kernels, label, sizes, rec, deferred))
-        recorded += recorder.entries
-    if not recorded:
-        fail(f"no K3 launch was recorded at flagship steps {REPLAY_STEPS}")
-    check_logged_rays()
-    check_orbit()
-    print(f"scenes generated on the host by a worker process while the "
-          f"main paths trained, seconds: {scenes.result()}")
-    scene_pool.shutdown()
-    # ---- the studio path: pause, resume, final checkpoint, render_only ----
-    with BinsumRecorder(STUDIO_REPLAY_STEPS) as recorder:
-        launches["studio"], by_size["studio"], studio = drive_main_path(
-            torch, kernels, "studio", card, STUDIO_ITERS, studio_path(config))
-    if not recorder.entries:
-        fail(f"no K3 launch was recorded at studio steps "
-             f"{STUDIO_REPLAY_STEPS}")
-    # ---- the Blender path: the studio scene as a nerf_synthetic folder
-    # through dataset=lego, the gt_bg panorama read from its EXR ----
-    write_blender_scene(config)
-    launches["blender"], by_size["blender"], blender = drive_main_path(
-        torch, kernels, "blender", card, STUDIO_ITERS - STUDIO_PAUSE,
-        blender_path(config))
-    gap = blender["psnr"] - studio["psnr"]
-    print(f"blender vs studio test PSNR: {blender['psnr']:.2f} - "
-          f"{studio['psnr']:.2f} = {gap:+.2f} dB (bar {BLENDER_DB} dB)")
-    if not abs(gap) <= BLENDER_DB:
-        fail(f"blender: test PSNR {blender['psnr']} is not within "
-             f"{BLENDER_DB} dB of the studio path's {studio['psnr']}")
-    # ---- the lego-size load: 100 views of 800^2 into the store on the
-    # card, then full-width flagship steps from it ----
-    launches["lego_size"], by_size["lego_size"], _ = drive_main_path(
-        torch, kernels, "lego_size", card, LEGO_STEPS,
-        lego_load_path(torch, config), psnr_bar=None)
-
-    # ---- relighting (pano2env, fixed_bg) on the studio checkpoint, the
-    # composition of two flagship checkpoints, dual-scene training; their
-    # launches at sizes first seen here (the fit's SAT) held after each ----
+    # ---- each path's launches at sizes first seen in its lane, held here
+    # in the order of PATH_ORDER (the lanes are done: the device times are
+    # read with nothing else on the card) ----
+    launches, by_size = {}, {}
     binsum = next(k for k in kernels if k["name"] == "binsum_rows")
-    for label, path, iters, kw in (
-            # the fit launches K3 (its backward), the renders K1
-            ("relight", relight_path(config, studio), FIT_ITERS,
-             {"runs": ("binsum_rows", "composite_fwd")}),
-            ("compose", compose_path(), COMPOSE_FRAMES,
-             {"psnr_bar": None, "trains": False,
-              "runs": ("composite_fwd",)}),
-            ("dual_scene", dual_path(config), DUAL_ITERS, {})):
-        with BinsumRecorder((), held={r["sizes"] for r in
-                                      binsum["shapes"]}) as rec:
-            launches[label], by_size[label], _ = drive_main_path(
-                torch, kernels, label, card, iters, path, **kw,
-                hold=lambda sizes, label=label, rec=rec: hold_new_sizes(
-                    torch, dev, gen, kernels, label, sizes, rec, deferred))
+    for label in PATH_ORDER:
+        r = reports[label]
+        launches[label], by_size[label] = r["launches"], r["by_size"]
+        if r["held_after"]:
+            held = {row["sizes"] for row in binsum["shapes"]}
+            rec = types.SimpleNamespace(
+                new={size: device_entry(torch, dev, e)
+                     for size, e in r["new"].items() if size not in held},
+                touched=r["touched"])
+            hold_new_sizes(torch, dev, gen, kernels, label, by_size[label],
+                           rec, deferred)
+        check_launches(kernels, label, launches[label], by_size[label], ())
+    recorded = [device_entry(torch, dev, e)
+                for e in reports["microfacet_tensorf2"]["recorded"]]
+    studio_recorded = [device_entry(torch, dev, e)
+                       for e in reports["studio"]["recorded"]]
     fit_k3 = {size: n for size, n in by_size["relight"][
         "binsum_rows"].items() if size[2] == FIT_SAT_ROWS}
     print(f"relight: K3 launches on the fit's SAT (N, C, R, dtype code): "
           f"{fit_k3}")
     if not fit_k3:
         fail("relight: K3 never scattered into the fit's SAT")
-
-    # ---- the new modules' paths: the occupancy-grid NMF, then an LLFF
-    # scene with NDC rays; their launches at sizes known only at run time
-    # (shrunk and NDC field rows, the chosen batch) are recorded at launch
-    # and held after the path ----
-    trained = {}
-    for label, path, iters in (
-            ("extras", extras_path(config), EXTRAS_ITERS),
-            ("occgrid", occgrid_path(config, trained), OCCGRID_ITERS),
-            ("occgrid_crop", occgrid_crop_path(torch, config, trained),
-             CROP_STEPS),
-            ("llff", llff_path(torch, config), LLFF_ITERS),
-            ("refnerf_studio", refnerf_studio_path(config, studio),
-             REFNERF_STUDIO_ITERS),
-            ("refnerf_tcnn", refnerf_tcnn_path(torch, config),
-             REFNERF_TCNN_ITERS),
-            ("dualref", dualref_path(config), DUALREF_ITERS),
-            ("grid", grid_path(torch, config), GRID_ITERS),
-            ("tensorf_pe", tensorf_pe_path(config, next(
-                k["kernel"] for k in kernels if k["name"] == "composite_fwd")),
-             TENSORF_PE_ITERS)):
-        with BinsumRecorder((), held={r["sizes"] for r in
-                                      binsum["shapes"]}) as rec:
-            launches[label], by_size[label], _ = drive_main_path(
-                torch, kernels, label, card, iters, path,
-                hold=lambda sizes, label=label, rec=rec: hold_new_sizes(
-                    torch, dev, gen, kernels, label, sizes, rec, deferred))
     hash_k3 = {size: n for size, n in by_size["refnerf_tcnn"][
         "binsum_rows"].items() if size[1] == 2}
     print(f"refnerf_tcnn: K3 launches on the hash tables (N, C, R, dtype "
@@ -3005,7 +3523,7 @@ def main():
         return "not measured" if t is None else f"{t:.4f} ms"
 
     t_deferred = time.time()
-    print(f"chip_smoke: paths done at {t_deferred - t_start:.1f} s")
+    print(f"chip_smoke: paths held at {t_deferred - t_start:.1f} s")
     for row, warm, cold, kname in deferred:
         if warm is not None:
             row["device_ms"] = device_ms(torch, warm, kname)
@@ -3019,7 +3537,7 @@ def main():
                 p: n[k["name"]].get(row["sizes"], 0)
                 for p, n in by_size.items()}
         k |= k["shapes"][0]  # a kernel's line gives its first shape
-    for path, entries in (("", recorded), ("studio_", recorder.entries)):
+    for path, entries in (("", recorded), ("studio_", studio_recorded)):
         binsum[f"{path}replayed"] = replay_binsum(torch, dev, gen, entries,
                                                   binsum["shapes"])
         binsum[f"{path}replayed_step_sums"] = step_sums(

@@ -8,8 +8,9 @@ ContinuousAlphagrid targets map onto), the TensoRF (MLPRender_Fea or
 MLPRender_PE head), Microfacet, RefNeRF and DualModel shading models
 (RandHydraMLPDiffuse, MLPBRDF with ListISH encoders; GGX, Beckmann,
 cosine-lobe or mixed bounce sampling; the VisibilityMLP cache and the
-bright-ray samplers), the MLPNormal / AppDimNormal normal modules and the
-IntegralEquirect envmap.
+bright-ray samplers), the MLPNormal / AppDimNormal normal modules, the
+IntegralEquirect envmap, the SRGB / HDR / Linear tonemaps, bf16 MLP
+operands (``mlp_dtype``) and the renderer's sample budgets.
 Every other target and knob raises ``NotImplementedError`` naming the
 slice that brings it.
 """
@@ -28,12 +29,13 @@ from .modules.brdf import init_mlp_brdf
 from .modules.brdf_samplers import (BeckmannSampler, CosineLobeSampler,
                                     GGXSampler, MultiSampler)
 from .modules.ish import ListISH
+from .modules.mlp import set_mlp_dtype
 from .modules.render_modules import (AppDimNormal, RandHydraMLPDiffuse,
                                      init_mlp_normal)
 from .modules.visibility import (CubeBrightSampler, ERBrightSampler,
                                  init_visibility_mlp)
 from .render import NMF
-from .samplers.alphagrid import SUPERSTEP, AlphaGridSampler
+from .samplers.alphagrid import AlphaGridSampler
 from .samplers.occgrid import OccGridSampler
 
 _LATER = ("is not ported yet: it comes with a later slice of nmf_tpu_torch "
@@ -119,17 +121,8 @@ def build_sampler(cfg, aabb, near_far):
         return build_occgrid(kw, aabb, near_far)
     if t and not t.endswith("AlphaGridSampler"):
         raise NotImplementedError(f"sampler {t!r} {_LATER}")
-    # the port's march fixes nmf_tpu's defaults of these two
-    if int(kw.get("superstep", SUPERSTEP)) != SUPERSTEP:
-        raise NotImplementedError(
-            f"model.arch.sampler.superstep={kw['superstep']} (the port's "
-            f"two-level march fixes it at {SUPERSTEP}) {_LATER}")
-    if not kw.get("fine_alpha_test", True):
-        raise NotImplementedError(
-            "model.arch.sampler.fine_alpha_test=false (the march without "
-            f"the fine mask test) {_LATER}")
     allowed = {"enable_alpha_mask", "update_list", "multiplier",
-               "alphaMask_thres"}
+               "alphaMask_thres", "superstep", "fine_alpha_test"}
     kw = {k: v for k, v in kw.items() if k in allowed}
     if "update_list" in kw:
         kw["update_list"] = tuple(kw["update_list"])
@@ -294,6 +287,17 @@ def build_bg(cfg):
     return init_integral_equirect(**_clean(cfg))
 
 
+def tonemap_name(cfg):
+    """nmf_tpu's curve for a tonemap target: SRGB (or none) -> srgb, HDR
+    -> hdr, Linear -> linear, anything else -> srgb."""
+    t = _target(cfg or {})
+    if "SRGB" in t or not t:
+        return "srgb"
+    if "HDR" in t:
+        return "hdr"
+    return "linear" if "Linear" in t else "srgb"
+
+
 def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
               grid_size=None) -> NMF:
     """Build the composed model from cfg.model.arch on ``device``, its field
@@ -304,16 +308,6 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but torch sees no CUDA device; "
                            "pass device=cpu to run on the CPU")
-    if arch_cfg.get("hdr"):
-        raise NotImplementedError(f"model.arch.hdr {_LATER}")
-    if arch_cfg.get("mlp_dtype") not in (None, "f32"):
-        raise NotImplementedError(
-            f"model.arch.mlp_dtype={arch_cfg['mlp_dtype']!r} (bf16 MLP "
-            f"operands) {_LATER}")
-    for key in ("app_samples_per_ray", "merge_runs",
-                "recur_proposal_samples_per_ray", "proposal_pad_iters"):
-        if int(arch_cfg.get(key, -1) or -1) > 0:
-            raise NotImplementedError(f"model.arch.{key} {_LATER}")
     gen = torch.Generator().manual_seed(int(seed))
     rf = build_field(gen, arch_cfg.get("rf", {}), aabb, grid_size)
     sampler = build_sampler(arch_cfg.get("sampler", {}), aabb, near_far)
@@ -326,9 +320,11 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
     bg = build_bg(arch_cfg.get("bg_module"))
     normal_module = build_normal_module(gen, arch_cfg.get("normal_module"),
                                         rf.app_dim)
-    tm_t = _target(arch_cfg.get("tonemap") or {})
-    if tm_t and "SRGB" not in tm_t:
-        raise NotImplementedError(f"tonemap {tm_t!r} {_LATER}")
+    # mlp_dtype reaches the shading model's and the normal module's MLPs
+    mlp_dtype = arch_cfg.get("mlp_dtype") or "f32"
+    for module in (model, normal_module):
+        if module is not None:
+            set_mlp_dtype(module, mlp_dtype)
     nmf = NMF(rf, sampler, model, bg_module=bg, normal_module=normal_module,
               max_samples_per_ray=arch_cfg.get("max_samples_per_ray", -1),
               recur_samples_per_ray=arch_cfg.get("recur_samples_per_ray",
@@ -345,6 +341,15 @@ def build_nmf(arch_cfg, aabb, near_far, seed=0, device="cuda",
               geonorm_iters=arch_cfg.get("geonorm_iters", -1),
               geonorm_interp_iters=arch_cfg.get("geonorm_interp_iters",
                                                 1000),
-              detach_inter=arch_cfg.get("detach_inter", False)).to(device)
+              detach_inter=arch_cfg.get("detach_inter", False),
+              tonemap=tonemap_name(arch_cfg.get("tonemap")),
+              hdr=bool(arch_cfg.get("hdr", False)),
+              app_samples_per_ray=arch_cfg.get("app_samples_per_ray", -1),
+              merge_runs=arch_cfg.get("merge_runs", 0),
+              recur_proposal_samples_per_ray=arch_cfg.get(
+                  "recur_proposal_samples_per_ray", -1),
+              proposal_pad_init=arch_cfg.get("proposal_pad_init", -1.0),
+              proposal_pad_iters=arch_cfg.get("proposal_pad_iters", 0)
+              ).to(device)
     sampler.update(rf, init=True)
     return nmf

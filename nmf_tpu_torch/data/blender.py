@@ -21,7 +21,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .exr import imread_any, write_png
+from .exr import imread_any, write_exr, write_png
 from .ray_utils import get_ray_directions, get_rays
 from .resize import resize_area
 
@@ -233,7 +233,7 @@ def load_dataset(cfg_dataset, datadir=None, split="train", n_vis=-1):
 
 
 def save_blender_split(scenedir, split, poses, images, camera_angle_x,
-                       normals=None, tints=None):
+                       normals=None, tints=None, exr=False):
     """Write one split of a scene in nerf_synthetic layout, as
     ``load_blender`` reads it: ``transforms_{split}.json`` (camera_angle_x,
     w, h, and a frame a view: ``file_path`` ``./{split}/r_{i}`` with no
@@ -242,7 +242,9 @@ def save_blender_split(scenedir, split, poses, images, camera_angle_x,
     to nearest; with ``normals``, ``normal_{i}.png`` holding (n + 1) / 2,
     and with ``tints``, ``tint_{i}.png``. ``images`` / ``normals`` /
     ``tints``: iterables of (H, W, C) float arrays, so a generator may
-    make the views one at a time."""
+    make the views one at a time. ``exr``: the images as
+    ``{split}/r_{i}.exr`` (32-bit float, ZIPS; values past 1 kept) and
+    ``"ext": ".exr"`` in the json, an HDR scene's layout."""
     scenedir = Path(scenedir)
     (scenedir / split).mkdir(parents=True, exist_ok=True)
 
@@ -254,7 +256,10 @@ def save_blender_split(scenedir, split, poses, images, camera_angle_x,
     for i, (pose, img, nrm, tint) in enumerate(zip(
             poses, images, none if normals is None else normals,
             none if tints is None else tints)):
-        write_png(scenedir / split / f"r_{i}.png", u8(img))
+        if exr:
+            write_exr(scenedir / split / f"r_{i}.exr", img)
+        else:
+            write_png(scenedir / split / f"r_{i}.png", u8(img))
         if nrm is not None:
             write_png(scenedir / split / f"normal_{i}.png", u8((nrm + 1) / 2))
         if tint is not None:
@@ -264,4 +269,6 @@ def save_blender_split(scenedir, split, poses, images, camera_angle_x,
                        .tolist()})
     meta = {"camera_angle_x": float(camera_angle_x), "w": img.shape[1],
             "h": img.shape[0], "frames": frames}
+    if exr:
+        meta["ext"] = ".exr"
     (scenedir / f"transforms_{split}.json").write_text(json.dumps(meta))

@@ -515,7 +515,8 @@ _SHINY_PHI_DEG = -25.0
 
 def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
                        env_bg=False, hemisphere=False, interreflect=True,
-                       n_gi_samples=64, scene="shiny", env_yaw_deg=0.0):
+                       n_gi_samples=64, scene="shiny", env_yaw_deg=0.0,
+                       linear=False):
     """Protocol scene (see module header). all_rgbs is RGBA (tonemapped
     foreground + alpha) so training can blend random backgrounds like the
     blender loader; test views sit between train azimuths.
@@ -533,7 +534,10 @@ def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
     is consistent with a physically based renderer (the blender scenes the
     reference trains on are path traced); costs ~1-2 min host time per
     split at 400px. env_yaw_deg turns the environment about +z (the scene
-    under another light; not in nmf_tpu's generator).
+    under another light; not in nmf_tpu's generator). linear=True keeps
+    the foreground's linear radiance (clipped at 0, not tonemapped: HDR
+    frames, values past 1 kept) in place of the sRGB colours (not in
+    nmf_tpu's generator).
 
     Results are memoized to runs/.dataset_cache (override location with
     NMF_DATASET_CACHE; set it empty to disable): the dataset is a pure
@@ -549,7 +553,8 @@ def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
                f"_r{radius}_s{seed}_p{phi_deg}_bg{int(env_bg)}"
                f"_h{int(hemisphere)}_gi{int(interreflect)}"
                f"x{n_gi_samples}"
-               + (f"_y{env_yaw_deg:g}" if env_yaw_deg else ""))
+               + (f"_y{env_yaw_deg:g}" if env_yaw_deg else "")
+               + ("_linear" if linear else ""))
         cache = cdir / f"torch_shiny_{key}.npz"
         if cache.exists():
             with np.load(cache) as z:
@@ -591,7 +596,8 @@ def make_shiny_dataset(n_views=24, H=128, W=128, split="train",
         rgb, alpha, norms, tints = render_shiny_scene(
             rays_o, rays_d, env, interreflect=interreflect, rng=gi_rng,
             n_gi_samples=n_gi_samples, spheres=spheres)
-        ldr = np.clip(_np_srgb(np.clip(rgb, 0, None)), 0, 1)
+        ldr = (np.clip(rgb, 0, None) if linear
+               else np.clip(_np_srgb(np.clip(rgb, 0, None)), 0, 1))
         if env_bg:
             rgba = np.concatenate([ldr, np.ones_like(alpha)[:, None]], -1)
         else:

@@ -12,8 +12,9 @@ by ``data/exr.py``, videos as animated GIFs by PIL (nmf_tpu writes mp4
 through cv2, or a GIF where it cannot). ``streaming=True`` renders through
 ``render_streaming`` (rgb, acc and depth maps only; local-shading models).
 
-Not in this slice: LPIPS (its weights cannot be fetched here) and the HDR
-renders' ``.exr`` dumps (they come with ``hdr``, ROADMAP A.1).
+An ``hdr`` model's views are also written as ``{prefix}{i:03d}.exr``: the
+rendered ``rgb_map`` unclipped (its curve is applied with ``noclip``).
+Not in this slice: LPIPS (its weights cannot be fetched here).
 """
 import contextlib
 import os
@@ -237,7 +238,8 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
     rays and return the means of psnr, ssim (``compute_extra_metrics``)
     and, where the dataset has them, norm_err and tint_psnr, plus the
     envmap metrics against ``gt_bg``. With ``save_dir``: the images as
-    {prefix}{i:03d}.png, one folder of PNGs per map,
+    {prefix}{i:03d}.png (and, for an ``hdr`` model, the unclipped
+    ``rgb_map`` as {prefix}{i:03d}.exr), one folder of PNGs per map,
     stats{prefix}.yaml, mean.txt, the envmap as {prefix}pano.png and
     {prefix}pano.exr (FLOAT, ZIPS) and, for more than one view, the
     sweep's videos {prefix}video.gif, depthvideo.gif and, where the
@@ -294,6 +296,9 @@ def evaluate(nmf: NMF, dataset, save_dir: Optional[str] = None,
                 maps["tint"].reshape(-1, 3), dataset["all_tints"][px]))
         if save_dir is not None:
             write_png(Path(save_dir) / name, pred)
+            if nmf.hdr:
+                write_exr(Path(save_dir) / f"{prefix}{img_i:03d}.exr",
+                          maps["rgb_map"])
             _save_maps(save_dir, name, maps, pred, gt, dataset.get("near_far"))
             vid["video"].append(pred)
             vid["depthvideo"].append(visualize_depth(

@@ -17,6 +17,7 @@ import torch.nn as nn
 from ..ops import sh
 from ..ops.grid_sample import quad_gather_2d
 from ..ops.safemath import EPS, safe_atan2
+from .brdf import LATER
 
 SAT_SCALE = 1000.0
 SAT_PAD = 72    # periodic columns on each side
@@ -57,8 +58,9 @@ class IntegralEquirect(nn.Module):
         self.brightness = nn.Parameter(torch.tensor(0.0))
         self.mul = nn.Parameter(torch.tensor(1.0))
         if activation != "exp":
-            raise NotImplementedError(f"bg_module.activation={activation!r} "
-                                      "is not ported yet (only exp)")
+            raise NotImplementedError(
+                f"bg_module.activation={activation!r} is not ported yet "
+                f"(only exp):{LATER}")
         self.lr = float(lr)
         self.mipbias_lr = float(mipbias_lr)
         self.brightness_lr = float(brightness_lr)
@@ -185,8 +187,10 @@ def init_integral_equirect(bg_resolution=512, init_val=-0.6,
                            lr=0.02, mipbias_lr=1e-4, brightness_lr=0.0,
                            mul_lr=0.0, sh_grad=False, **_):
     if mipnoise:
-        raise NotImplementedError("bg_module.mipnoise > 0 is not ported yet")
+        raise NotImplementedError(
+            f"bg_module.mipnoise > 0 is not ported yet:{LATER}")
     if sh_grad:
-        raise NotImplementedError("bg_module.sh_grad is not ported yet")
+        raise NotImplementedError(
+            f"bg_module.sh_grad is not ported yet:{LATER}")
     return IntegralEquirect(bg_resolution, init_val, activation, mipbias, lr,
                             mipbias_lr, brightness_lr, mul_lr)

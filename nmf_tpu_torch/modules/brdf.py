@@ -8,6 +8,7 @@ import torch.nn.functional as F
 from ..ops.safemath import inv_activation, normalize, positional_encoding
 from .mlp import MLP
 
+LATER = " it comes with a later slice of nmf_tpu_torch (ROADMAP A.1)"
 ACTIVATIONS = {"sigmoid": torch.sigmoid, "exp": torch.exp,
                "softplus": F.softplus}
 
@@ -24,8 +25,8 @@ class MLPBRDF(nn.Module):
         self.d_encoder = d_encoder
         self.feape = int(feape)
         if activation not in ACTIVATIONS:
-            raise NotImplementedError(f"brdf.activation={activation!r} is "
-                                      "not ported yet")
+            raise NotImplementedError(
+                f"brdf.activation={activation!r} is not ported yet:{LATER}")
         self.activation = activation
         self.mul_LdotN = bool(mul_LdotN)
         self.lr = float(lr)
@@ -80,7 +81,7 @@ def init_mlp_brdf(in_channels, h_encoder=None, d_encoder=None, feape=0,
                   lr=1e-3, hidden_w=64, num_layers=3, initializer="kaiming",
                   generator=None, **_):
     if dotpe >= 0:
-        raise NotImplementedError("brdf.dotpe >= 0 is not ported yet")
+        raise NotImplementedError(f"brdf.dotpe >= 0 is not ported yet:{LATER}")
     in_mlpC = 2 * feape * in_channels + in_channels
     if h_encoder is not None:
         in_mlpC += h_encoder.dim() + 3

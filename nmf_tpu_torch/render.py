@@ -4,10 +4,11 @@
 Samples stay in a padded (B, K) layout with a validity mask. The
 transmittance weights go through the composite CUDA kernel
 (``ops/kernels/composite.transmittance_weights``) on the card: for the
-proposal pass (forward only), the primary pass and every retrace pass.
+proposal passes, the primary pass and every retrace pass.
 
-A pass optionally runs a no-gradient proposal density over the full march
-and resamples a smaller weight-proportional fine set; the field query gives
+A pass optionally runs a proposal density over the full march and
+resamples a smaller weight-proportional fine set (on the primary pass
+without gradient); the field query gives
 normals when the shading model needs them; the shading model may call back
 into ``render`` one recursion level deeper for its retraced bounce rays,
 whose sample positions keep their gradient to the bounce directions. The
@@ -27,20 +28,35 @@ pass reports ``normal_err``: the weighted misalignment of the geometric
 and the predicted normals (zeros without a normal module) with them, over
 the rays whose normal's components sum past 0.9.
 
-Not ported yet: ``merge_runs`` and two-stage shading
-(``app_samples_per_ray``); a configuration asking for them raises
-``NotImplementedError`` when built.
+The shading set can be smaller than the march: with
+``app_samples_per_ray`` (two-stage) the top samples of each ray by weight,
+with ``merge_runs`` the top runs of consecutive same-cell samples
+(``ops/runs.py``; it wins when both are set). Either applies to the
+primary pass of a field with a grid; its stage 1 queries the density over
+the full march (the same values the fused query gives, so ``acc_map``,
+the distortion loss and the sample count see the full budget), and stage
+2 the appearance (and normals) of the shading set only. With
+``recur_proposal_samples_per_ray`` a retrace pass runs the proposal too,
+with the field's tensors held still and the positions differentiable in
+the bounce rays. ``proposal_pad_init`` / ``proposal_pad_iters`` anneal the
+proposal's pad geometrically from the one to ``proposal_pad`` over those
+iterations (``proposal_pad_cur``, a 0-d buffer). The output is
+tonemapped with the NMF's curve (``tonemap``), unclipped with ``hdr``.
 """
+import contextlib
+import warnings
+
 import torch
 import torch.nn as nn
 
 from .ops.draws import Draws
 from .ops.kernels.composite import transmittance_weights
 from .ops.losses import distortion_loss
-from .ops.masked import row_mask_sum
+from .ops.masked import gather_rows, row_mask_sum
 from .ops.resample import resample_pdf
+from .ops.runs import cell_indices, merge_sample_runs, top_k_indices
 from .ops.safemath import normalize
-from .ops.tonemap import srgb_tonemap
+from .ops.tonemap import get_tonemap
 
 
 class NMF(nn.Module):
@@ -52,7 +68,10 @@ class NMF(nn.Module):
                  proposal_pad=0.01, recur_stepmul=1.0, eval_batch_size=4096,
                  lr_scale=1.0, use_predicted_normals=False,
                  align_pred_norms=True, geonorm_iters=-1,
-                 geonorm_interp_iters=1000, detach_inter=False):
+                 geonorm_interp_iters=1000, detach_inter=False,
+                 tonemap="srgb", hdr=False, app_samples_per_ray=-1,
+                 merge_runs=0, recur_proposal_samples_per_ray=-1,
+                 proposal_pad_init=-1.0, proposal_pad_iters=0):
         super().__init__()
         self.rf = rf
         self.sampler = sampler
@@ -74,6 +93,25 @@ class NMF(nn.Module):
         self.eval_batch_size = int(eval_batch_size)
         self.lr_scale = float(lr_scale)
         self.detach_inter = bool(detach_inter)
+        get_tonemap(tonemap)
+        self.tonemap = tonemap
+        self.hdr = bool(hdr)
+        self.app_samples_per_ray = int(app_samples_per_ray)
+        self.merge_runs = int(merge_runs or 0)
+        self.recur_proposal_samples_per_ray = int(
+            recur_proposal_samples_per_ray)
+        self.proposal_pad_init = float(proposal_pad_init)
+        self.proposal_pad_iters = int(proposal_pad_iters or 0)
+        # the annealed pad's live value, from the build on
+        anneal = self.proposal_pad_iters > 0 and self.proposal_pad_init > 0
+        self.register_buffer("proposal_pad_cur", torch.tensor(
+            self.proposal_pad_init) if anneal else None)
+
+    @property
+    def pad(self):
+        """The proposal's pad: the annealed value, else ``proposal_pad``."""
+        return (self.proposal_pad if self.proposal_pad_cur is None
+                else self.proposal_pad_cur)
 
     def check_schedule(self, iteration: int) -> bool:
         """Host-side schedule tick, in place. Returns whether the optimizer
@@ -81,7 +119,8 @@ class NMF(nn.Module):
         the field before this tick's upsample, as in nmf_tpu; at one of
         the sampler's ``shrink_iters`` the field is then cropped to the
         sampler's occupied box (a rebuild even when the box stays). The
-        geonorm schedule sets the normal blend."""
+        geonorm schedule sets the normal blend, the pad's anneal the
+        pad."""
         m_changed = self.model.check_schedule(iteration)
         s_changed = self.sampler.check_schedule(iteration, self.rf)
         r_changed = self.rf.check_schedule(iteration)
@@ -97,7 +136,27 @@ class NMF(nn.Module):
                           / self.geonorm_interp_iters, 0.0), 1.0)
             with torch.no_grad():
                 self.predicted_normal_lambda.fill_(lam)
+        if self.proposal_pad_cur is not None:
+            t = min(max(iteration / self.proposal_pad_iters, 0.0), 1.0)
+            with torch.no_grad():
+                self.proposal_pad_cur.fill_(self.proposal_pad_init ** (1 - t)
+                                            * self.proposal_pad ** t)
         return changed
+
+
+@contextlib.contextmanager
+def held_still(module):
+    """Gradients flow to the inputs of ``module``'s queries but not to its
+    tensors within the block (nmf_tpu's stop-gradient copy of the field)."""
+    moving = [t for t in (*module.parameters(), *module.buffers())
+              if t.requires_grad]
+    for t in moving:
+        t.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for t in moving:
+            t.requires_grad_(True)
 
 
 def render_just_bg(nmf: NMF, viewdirs, mipval, bg_cache=None):
@@ -204,29 +263,77 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
     K = xyz.shape[1]
     rf = nmf.rf
 
-    kf = nmf.proposal_samples_per_ray if recur == 0 else -1
+    kf = (nmf.proposal_samples_per_ray if recur == 0
+          else nmf.recur_proposal_samples_per_ray)
     if 0 < kf < K:
-        # proposal: density without gradient over the whole march, then a
-        # weight-proportional fine set of kf samples
-        with torch.no_grad():
+        # proposal: density over the whole march, then a weight-proportional
+        # fine set of kf samples; on a retrace pass the positions keep their
+        # gradient to the bounce rays (the field's tensors are held still)
+        with torch.no_grad() if recur == 0 else held_still(rf):
             sigma_p = rf.compute_densityfeature(
                 xyz.reshape(-1, 4), use_gather_dtype=True).reshape(B, K)
             sigma_p = torch.where(valid, sigma_p, torch.zeros_like(sigma_p))
             w_p = transmittance_weights(sigma_p, dists * rf.distance_scale)
             z_vals, dists, valid = resample_pdf(
-                draws, z_vals, dists, w_p, valid, kf, is_train,
-                nmf.proposal_pad)
+                draws, z_vals, dists, w_p, valid, kf, is_train, nmf.pad)
             pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z_vals[..., None]
             xyz = torch.cat([pts, z_vals[..., None]], dim=-1)
         K = kf
 
-    sigma, app_features, world_normal = rf.compute_all(
-        xyz.reshape(-1, 4), with_normals=nmf.model.needs_normals(recur))
+    needs_normals = nmf.model.needs_normals(recur)
+    app_k = nmf.app_samples_per_ray if recur == 0 else -1
+    merge_k = nmf.merge_runs if recur == 0 else 0
+    merge = 0 < merge_k < K and hasattr(rf, "grid_size")
+    if merge and 0 < app_k < K:
+        warnings.warn(
+            "merge_runs takes precedence over app_samples_per_ray: the "
+            "two-stage top-K shading stage is disabled while run-collapsed "
+            "shading is active (both coarsen the same shading set)",
+            stacklevel=2)
+    two_stage = 0 < app_k < K and not merge
+    if two_stage or merge:
+        # stage 1: density over the full march, the values compute_all
+        # gives, so acc_map is the full render's
+        sigma = rf.compute_densityfeature(xyz.reshape(-1, 4),
+                                          use_gather_dtype=True)
+        app_features = world_normal = None
+    else:
+        sigma, app_features, world_normal = rf.compute_all(
+            xyz.reshape(-1, 4), with_normals=needs_normals)
     sigma = torch.where(valid, sigma.reshape(B, K), sigma.new_zeros(()))
     weight = transmittance_weights(sigma, dists * rf.distance_scale)
     if recur > 0 and nmf.detach_inter:
         weight = weight.detach()
     acc_map = weight.sum(dim=1)
+    # the full march's quadrature, for the distortion loss and the count
+    z_full, d_full, w_full, valid_full = z_vals, dists, weight, valid
+
+    if two_stage:
+        # stage 2 shades the top app_k samples of each ray by weight
+        idx = top_k_indices(weight, app_k)
+        xyz = gather_rows(xyz, idx)
+        z_vals, dists = gather_rows(z_vals, idx), gather_rows(dists, idx)
+        weight = gather_rows(weight, idx)
+        valid = gather_rows(valid, idx) & (weight > 0)
+        K = app_k
+    if merge:
+        # stage 2 shades one sample a run of same-cell samples; the merged
+        # positions are a quadrature choice and carry no gradient, the run
+        # weights keep theirs
+        z_m, d_m, weight, valid = merge_sample_runs(
+            cell_indices(rf, xyz), z_vals, dists, weight, valid, merge_k)
+        z_vals, dists = z_m.detach(), d_m.detach()
+        pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z_vals[..., None]
+        xyz = torch.cat([pts, z_vals[..., None]], dim=-1)
+        K = merge_k
+    if app_features is None:
+        xyz_s = xyz.reshape(-1, 4)
+        if not needs_normals or getattr(rf, "fused_normals_ok", False):
+            _, app_features, world_normal = rf.compute_all(
+                xyz_s, with_normals=needs_normals)
+        else:
+            app_features = rf.compute_appfeature(xyz_s)
+            world_normal = rf.compute_normals(xyz_s)
 
     xyz_flat = xyz.reshape(-1, 4)
     valid_flat = valid.reshape(-1)
@@ -259,12 +366,13 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
         if retrace_thin:
             stats["thin_scale_retrace"] = retrace_thin[0]
 
+    tm_fn = get_tonemap(nmf.tonemap)
     if nmf.bg_module is not None and bg_col is None:
         bg_mip = (torch.full((B,), -100.0, device=dev) if start_mipval is None
                   else start_mipval.reshape(-1))
         bg = render_just_bg(nmf, rays[:, 3:6], bg_mip, bg_cache)
         if tonemap:
-            bg = srgb_tonemap(bg, noclip=True)
+            bg = tm_fn(bg, noclip=True)
     else:
         bg = torch.as_tensor((0.0, 0.0, 0.0) if bg_col is None else bg_col,
                              dtype=torch.float32, device=dev).reshape(1, 3)
@@ -307,16 +415,16 @@ def render(nmf: NMF, rays, is_train=False, bg_col=(1.0, 1.0, 1.0),
             "diffuse_reg": ((aweight.detach()[:, None]
                              * debug["diffuse"]).sum() / 3
                             if "diffuse" in debug else zero),
-            "distortion_loss": distortion_loss(z_vals, weight, dists),
+            "distortion_loss": distortion_loss(z_full, w_full, d_full),
             "normal_err": normal_err,
-            "n_valid_samples": valid.sum(),
+            "n_valid_samples": valid_full.sum(),
         })
     images = {}
     if draw_debug:
         images.update(debug_maps(weight, valid, acc_map, z_vals, xyz_normed,
                                  world_normal, pred_normal, rgb, debug, bg))
     if tonemap:
-        rgb_map = srgb_tonemap(rgb_map)
+        rgb_map = tm_fn(rgb_map, noclip=nmf.hdr)
     images["rgb_map"] = rgb_map + (1 - acc_map[..., None]) * bg
     images["acc_map"] = acc_map
     return images, stats

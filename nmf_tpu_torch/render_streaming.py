@@ -23,7 +23,7 @@ import torch
 
 from .ops.draws import Draws
 from .ops.kernels.composite import composite_rays
-from .ops.tonemap import srgb_tonemap
+from .ops.tonemap import get_tonemap
 
 
 @torch.no_grad()
@@ -89,6 +89,7 @@ def render_streaming(nmf, rays, block: int = 64, t_thresh: float = 1e-4):
         T = T * torch.prod(1.0 - alpha + 1e-10, dim=1)
         i += 1
 
-    rgb_map = srgb_tonemap(rgb_acc) + (1 - acc[..., None])
+    tm_fn = get_tonemap(nmf.tonemap)
+    rgb_map = tm_fn(rgb_acc, noclip=nmf.hdr) + (1 - acc[..., None])
     return ({"rgb_map": rgb_map, "acc_map": acc, "depth": depth_acc},
             {"blocks": i})

@@ -3,10 +3,12 @@
 
 Output is a padded, static-shape (B, K) set of samples with a validity
 mask: the first K valid samples of the N march steps of each ray, chosen by
-a stable sort (``ops.masked.compact_topk``). When K divides by the
-superstep S = 4 and K < N the two-level march runs: one lookup of an
-extra-dilated coarse mask per superstep of S steps, compaction to K // S
-supersteps, expansion, then the fine mask test. Training marches draw
+a stable sort (``ops.masked.compact_topk``). With a ``superstep`` S > 1
+(4 by default) and K < N divisible by S the two-level march runs: one
+lookup of an extra-dilated coarse mask per superstep of S steps,
+compaction to K // S supersteps, expansion, then (with
+``fine_alpha_test``) the fine mask test. S of 0 or 1 turns it off: the
+mask then has no coarse volume. Training marches draw
 cumulative jittered steps (nmf_tpu's ``cumrand``, which every config
 uses). ``sample_ndc`` marches NDC rays (LLFF scenes) in linear steps,
 culled by the box alone.
@@ -27,7 +29,6 @@ import torch.nn as nn
 from ..ops.grid_sample import grid_sample_3d, max_pool_3d
 from ..ops.masked import compact_topk, gather_rows
 
-SUPERSTEP = 4
 DENSE_CHUNK_POINTS = 1 << 21  # points per slab group of the mask rebuild
 
 
@@ -75,9 +76,10 @@ def compact_samples(pts, size, z_vals, dists, valid, K: int):
 
 class AlphaGridMask(nn.Module):
     """Dense binarized alpha volume (D, H, W), indexed [z, y, x], and the
-    same volume dilated by a superstep's extent (``coarse_volume``)."""
+    same volume dilated by a superstep's extent (``coarse_volume``, None
+    without supersteps)."""
 
-    def __init__(self, aabb, alpha_volume, coarse_volume):
+    def __init__(self, aabb, alpha_volume, coarse_volume=None):
         super().__init__()
         self.register_buffer("aabb", aabb.clone())
         self.register_buffer("alpha_volume", alpha_volume)
@@ -112,7 +114,8 @@ class AlphaGridMask(nn.Module):
 
 class AlphaGridSampler(nn.Module):
     def __init__(self, aabb, near_far=(2.0, 6.0), enable_alpha_mask=True,
-                 update_list=(), alpha_mask_thres=0.001, multiplier=1):
+                 update_list=(), alpha_mask_thres=0.001, multiplier=1,
+                 superstep=4, fine_alpha_test=True):
         super().__init__()
         self.register_buffer("aabb", torch.as_tensor(aabb,
                                                      dtype=torch.float32))
@@ -122,6 +125,8 @@ class AlphaGridSampler(nn.Module):
         self.update_list = tuple(update_list)
         self.alpha_mask_thres = float(alpha_mask_thres)
         self.multiplier = int(multiplier)
+        self.superstep = int(superstep)
+        self.fine_alpha_test = bool(fine_alpha_test)
         self.stepsize = 0.01
         self.n_samples = 440
         self.register_buffer("step_scale", None)
@@ -154,7 +159,8 @@ class AlphaGridSampler(nn.Module):
         elif self.alpha_mask is None:
             gs = tuple(rf.grid_size)[::-1] if fixed else (32, 32, 32)
             ones = torch.ones(gs, device=self.aabb.device)
-            self.alpha_mask = AlphaGridMask(self.aabb, ones, ones.clone())
+            self.alpha_mask = AlphaGridMask(
+                self.aabb, ones, ones.clone() if self.superstep > 1 else None)
         return self
 
     def check_schedule(self, iteration: int, rf) -> bool:
@@ -170,8 +176,8 @@ class AlphaGridSampler(nn.Module):
         aabb = self.aabb.detach().cpu().numpy().astype(np.float64)
         unit_min = float(((aabb[1] - aabb[0])
                           / (np.asarray(gs, np.float64) - 1)).min())
-        return int(np.ceil(0.75 * SUPERSTEP * self.stepsize * self._scale()
-                           / unit_min + 0.5))
+        return int(np.ceil(0.75 * self.superstep * self.stepsize
+                           * self._scale() / unit_min + 0.5))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -201,7 +207,10 @@ class AlphaGridSampler(nn.Module):
         # one cell of dilation at the field's live resolution
         alpha_t = max_pool_3d(alpha_t, 2 * int(np.ceil(self._scale())) + 1)
         alpha_bin = (alpha_t >= self.alpha_mask_thres).float()
-        coarse = max_pool_3d(alpha_bin, 2 * self._coarse_dilate_radius(gs) + 1)
+        coarse = None
+        if self.superstep > 1:
+            coarse = max_pool_3d(alpha_bin,
+                                 2 * self._coarse_dilate_radius(gs) + 1)
         self.alpha_mask = AlphaGridMask(self.aabb, alpha_bin, coarse)
         occupied = alpha_bin.permute(2, 1, 0) > 0.5
         if bool(occupied.any()):
@@ -251,8 +260,10 @@ class AlphaGridSampler(nn.Module):
         z_vals = t_min[:, None] + step
 
         K = max_samples_per_ray
-        if (0 < K < N and K % SUPERSTEP == 0 and self.enable_alpha_mask
-                and self.alpha_mask is not None):
+        S = self.superstep
+        if (S > 1 and 0 < K < N and K % S == 0 and self.enable_alpha_mask
+                and self.alpha_mask is not None
+                and self.alpha_mask.coarse_volume is not None):
             return self._sample_two_level(rays_o, rays_d, z_vals, K)
 
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
@@ -280,10 +291,11 @@ class AlphaGridSampler(nn.Module):
 
     def _sample_two_level(self, rays_o, rays_d, z_vals, K: int):
         """One coarse-mask lookup per superstep of S steps, compaction of
-        the passing supersteps to K // S, expansion to K samples. A kept
-        sample keeps its distance to the next candidate step."""
+        the passing supersteps to K // S, expansion to K samples, and with
+        ``fine_alpha_test`` the fine mask test. A kept sample keeps its
+        distance to the next candidate step."""
         B, N = z_vals.shape
-        S = SUPERSTEP
+        S = self.superstep
         NS = N // S
         Ks = K // S
         z = z_vals[:, :NS * S]
@@ -305,7 +317,8 @@ class AlphaGridSampler(nn.Module):
         z_f = sel[..., :S].reshape(B, K)
         d_f = sel[..., S:].reshape(B, K)
         pts = at(z_f)
-        valid = (self._in_box(pts) & torch.repeat_interleave(keep_s, S, dim=1)
-                 & (self.alpha_mask.sample_alpha(pts) > 0))
+        valid = self._in_box(pts) & torch.repeat_interleave(keep_s, S, dim=1)
+        if self.fine_alpha_test:
+            valid = valid & (self.alpha_mask.sample_alpha(pts) > 0)
         xyz = torch.cat([pts, z_f[..., None]], dim=-1)
         return {"xyz": xyz, "z_vals": z_f, "dists": d_f, "valid": valid}

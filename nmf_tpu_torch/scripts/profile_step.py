@@ -19,7 +19,10 @@ model=refnerf_tcnn (on field=hashgrid): chip_smoke.py's hash-grid cut
 (geonorm_interp_iters 400); windows at 150 and 450. A field override
 takes the model's schedule: model=microfacet_tensorf2 field=grid (the
 dense voxel field, which never upsamples: chip_smoke.py's grid path)
-profiles its windows at 150 and 450 on the 128^3 table. For each window it
+profiles its windows at 150 and 450 on the 128^3 table. Other overrides
+ride on the model's schedule: model=microfacet_tensorf2
+model.arch.merge_runs=32 model.arch.recur_proposal_samples_per_ray=48
+profiles the sample budgets (chip_smoke.py's budgets knobs). For each window it
 prints the step time (CUDA events, profiler off), the device-busy share of
 the profiled window, and the kernels ranked by device time per step,
 grouped into classes (composite K1 and K2 and binsum K3 apart). Needs a
@@ -159,7 +162,7 @@ def main(argv=None):
                                   (1.0, 1.0, 1.0),
                                   make_loss_weights(params,
                                                     state["l1_rest"]),
-                                  draws=draws)
+                                  draws=draws, hdr=nmf.hdr)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -50,7 +50,8 @@ and pred weights geometrically to those values over ``n_iters`` (a resumed
 run starts at ``decay ** start_iter``); ``charbonier_loss``,
 ``TV_weight_bg``, ``normal_err_lambda`` (against the train split's
 ``all_norms``, a store on the device batched with the rays) and
-``weight_decay`` go to the trainer. ``adapt_brdf_budget`` grows the
+``weight_decay`` go to the trainer, and an ``hdr`` model trains on the
+Huber loss. ``adapt_brdf_budget`` grows the
 bounce budgets (``BudgetController``); the pause checkpoint carries the
 grown budgets and ``budget_mult``, the final one the configured budgets.
 
@@ -449,7 +450,8 @@ def reconstruction(cfg, log=print):
             nmf, opt, rays, rgb_gt, tuple(float(c) for c in bg_col),
             make_loss_weights(params, l1_rest, tv_mult, ori_mult,
                               pred_mult), draws=draws, ndc_ray=ndc_ray,
-            gt_normals=None if store_norms is None else store_norms[ids])
+            gt_normals=None if store_norms is None else store_norms[ids],
+            hdr=nmf.hdr)
         tv_mult *= tv_decay
         ori_mult *= ori_decay
         pred_mult *= pred_decay

@@ -120,15 +120,18 @@ def group_lrs(nmf: NMF):
 
 def differentiated_tensors(nmf: NMF):
     """(path, tensor, label) of every tensor the train step differentiates:
-    the parameters, the field's and the sampler's boxes and the normal
-    blend (frozen; the sampler's box takes a gradient through the retrace
-    pass, the blend through a normal module)."""
+    the parameters, the field's and the sampler's boxes, the normal blend
+    and the annealed proposal pad (frozen; the sampler's box takes a
+    gradient through the retrace pass, the blend through a normal module,
+    the pad through a retrace pass's proposal)."""
     out = [(name.replace(".", "/"), p, label_for_path(name.replace(".", "/")))
            for name, p in nmf.named_parameters()]
     out.append(("rf/aabb", nmf.rf.aabb, "frozen"))
     out.append(("sampler/aabb", nmf.sampler.aabb, "frozen"))
     out.append(("predicted_normal_lambda", nmf.predicted_normal_lambda,
                 "frozen"))
+    if nmf.proposal_pad_cur is not None:
+        out.append(("proposal_pad_cur", nmf.proposal_pad_cur, "frozen"))
     return out
 
 
@@ -231,6 +234,14 @@ class LossWeights(NamedTuple):
     charbonier_eps: float = 1e-3
 
 
+def huber_loss(pred, target, delta=1.0):
+    """optax's elementwise Huber loss: 0.5 d^2 for |d| <= delta, else
+    delta (|d| - 0.5 delta)."""
+    err = torch.abs(pred - target)
+    quad = torch.clamp(err, max=delta)
+    return 0.5 * quad ** 2 + delta * (err - quad)
+
+
 # loss weight -> render stat it scales
 _STAT_TERMS = (("distortion_lambda", "distortion_loss"),
                ("ori_lambda", "ori_loss"),
@@ -241,11 +252,14 @@ _STAT_TERMS = (("distortion_lambda", "distortion_loss"),
 
 
 def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
-                 draws, ndc_ray=False, gt_normals=None):
+                 draws, ndc_ray=False, gt_normals=None, hdr=False):
     """Photometric + regularizer loss. Returns (loss, metrics). The envmap
     cache is built once here for the whole step; ``ndc_ray``: the rays are
     NDC rays; ``gt_normals`` (B, 3): the rays' ground-truth normals (the
-    normal-error term needs them)."""
+    normal-error term needs them); ``hdr``: the photometric term is the
+    summed Huber loss (delta 1) on the unclipped colours, ahead of
+    Charbonier. ``photo_mse`` is the clipped squared error whatever the
+    term."""
     bg_cache = nmf.bg_module.prepare() if nmf.bg_module is not None else None
     ims, stats = render(nmf, rays, is_train=True, bg_col=bg_col,
                         draws=draws, bg_cache=bg_cache, ndc_ray=ndc_ray,
@@ -253,7 +267,9 @@ def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
     rgb_map = ims["rgb_map"]
     B = rays.shape[0]
     sq = (torch.clamp(rgb_map, 0, 1) - torch.clamp(rgb_gt, 0, 1)) ** 2
-    if weights.charbonier:
+    if hdr:
+        total = huber_loss(rgb_map, rgb_gt).sum()
+    elif weights.charbonier:
         total = torch.sqrt((rgb_map - rgb_gt) ** 2
                            + weights.charbonier_eps ** 2).sum()
     else:
@@ -284,13 +300,14 @@ def compute_loss(nmf: NMF, rays, rgb_gt, weights: LossWeights, bg_col,
 
 
 def train_step(nmf: NMF, opt: Optimizer, rays, rgb_gt, bg_col,
-               weights: LossWeights, draws, ndc_ray=False, gt_normals=None):
+               weights: LossWeights, draws, ndc_ray=False, gt_normals=None,
+               hdr=False):
     """One step: loss, backward, optimizer update. A non-finite loss skips
     the update (parameters and optimizer state stay as they were)."""
     opt.zero_grad()
     loss, metrics = compute_loss(nmf, rays, rgb_gt, weights, bg_col,
                                  draws=draws, ndc_ray=ndc_ray,
-                                 gt_normals=gt_normals)
+                                 gt_normals=gt_normals, hdr=hdr)
     loss.backward()
     if bool(torch.isfinite(loss.detach())):
         opt.step()

@@ -225,18 +225,60 @@ def test_unported_targets_raise():
 
 
 @pytest.mark.parametrize("override", [
-    "model.arch.hdr=true",
     "model.arch.bg_module.mipnoise=0.1",
     "model.arch.model.brdf.dotpe=0",
-    "model.arch.mlp_dtype=bf16",
-    "model.arch.sampler.superstep=2",
-    "model.arch.sampler.fine_alpha_test=false"])
+    "model.arch.model.brdf.activation=sigexp"])
 def test_unported_flagship_knobs_raise(override):
     # the flagship's shipped config sets none of these; they come with a
-    # later slice
+    # later slice, and the error says so
     cfg = ttrain.config_lib.compose([*FLAGSHIP, override])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="later slice"):
         tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    ["model.arch.hdr=true",
+     "model.arch.tonemap._target_=modules.tonemap.HDRTonemap"],
+    ["model.arch.mlp_dtype=bf16"],
+    ["model.arch.sampler.superstep=2"],
+    ["model.arch.sampler.fine_alpha_test=false"]],
+    ids=["hdr", "mlp_dtype_bf16", "superstep2", "no_fine_alpha_test"])
+def test_ported_flagship_knobs_build_and_match(override):
+    """Knobs that raised before this slice build, with nmf_tpu's state-dict
+    keys and shapes, and give nmf_tpu's eval render of 64 rays (rgb to
+    1e-5 of its largest, bf16 operands to 1e-4: an ulp of an MLP input
+    can flip a bf16 rounding; acc to 1e-6). The envmap's mip bias is at
+    12, as in tests/test_torch_flagship.py, so its lookups agree to
+    1e-6."""
+    from nmf_tpu_torch.ops.draws import Draws as TDraws
+    from torch_parity import build_flagship_pair, port_copy, render_draws
+    jn, _, cfg = build_flagship_pair(override)
+    jn = jn.replace(bg_module=jn.bg_module.replace(
+        mipbias=jnp.asarray(12.0, jnp.float32)))
+    tn = port_copy(jn, cfg)
+    jsd, tsd = jckpt.state_dict(jn), weights.to_jax_state_dict(tn)
+    assert sorted(tsd) == sorted(jsd)
+    for k, v in jsd.items():
+        assert tsd[k].shape == v.shape, k
+    ds = jload(DATASET, None, "train")
+    rays = ds["all_rays"][np.random.default_rng(0).choice(
+        ds["all_rays"].shape[0], B, replace=False)]
+    key = jax.random.PRNGKey(9)
+    jims, _ = jax.jit(lambda n, r: jrender(
+        n, r, key, is_train=False, bg_cache=n.bg_module.prepare()))(
+            jn, jnp.asarray(rays))
+    with torch.no_grad():
+        tims, _ = ttrain.trainer.render(
+            tn, torch.from_numpy(rays), is_train=False,
+            draws=TDraws(None, render_draws(key, jn, B, False)),
+            bg_cache=tn.bg_module.prepare())
+    tol = 1e-4 if "bf16" in override[0] else 1e-5
+    want = np.asarray(jims["rgb_map"])
+    np.testing.assert_allclose(tims["rgb_map"].numpy(), want, rtol=0,
+                               atol=tol * np.abs(want).max())
+    np.testing.assert_allclose(tims["acc_map"].numpy(),
+                               np.asarray(jims["acc_map"]), rtol=0,
+                               atol=1e-6)
 
 
 # the tiny tensorf of test_reconstruction_on_cpu_writes_eval_images, one

@@ -85,7 +85,8 @@ def render_draws(key, jn, B, is_train, recur=0, prefix=""):
     """The draws of nmf_tpu's ``render(key)`` of B rays at recursion
     ``recur``, by the port's names: render.py splits the key four ways
     (march jitter, shade, -, proposal resampling); a shading model without
-    bounce rays draws nothing."""
+    bounce rays draws nothing. The shading set is the proposal's fine set,
+    or the merged runs or the two-stage set of the primary pass."""
     keys = jax.random.split(key, 4)
     d = {}
     K = jn.max_samples_per_ray if recur == 0 else jn.recur_samples_per_ray
@@ -93,11 +94,16 @@ def render_draws(key, jn, B, is_train, recur=0, prefix=""):
     if is_train:
         d[prefix + "jitter"] = _u(keys[0],
                                   (B, int(jn.sampler.n_samples * stepmul)))
-    kf = jn.proposal_samples_per_ray if recur == 0 else -1
+    kf = (jn.proposal_samples_per_ray if recur == 0
+          else jn.recur_proposal_samples_per_ray)
     if 0 < kf < K:
         if is_train:
             d[prefix + "resample"] = _u(keys[2], (B, kf + 1))
         K = kf
+    if recur == 0 and 0 < jn.merge_runs < K:
+        K = jn.merge_runs
+    elif recur == 0 and 0 < jn.app_samples_per_ray < K:
+        K = jn.app_samples_per_ray
     if hasattr(jn.model, "brdf_ray_budget"):
         d.update(shade_draws(keys[1], jn, B * K, is_train, recur,
                              prefix + "shade/"))
