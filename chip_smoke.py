@@ -12,7 +12,8 @@
    ``index_add_`` (which the port never calls). composite (K1/K2) at the
    tensorf step (B = 4096 rays x K = 192 samples, weights-only and full
    mode) and the flagship's passes (4096 x 192 forward only, 4096 x 96,
-   1024 x 96), held at ragged shapes (K = 1, 33, 1024); binsum (K3) at
+   1024 x 96, the retrace pass after its proposal 1024 x 48), held at
+   ragged shapes (K = 1, 33, 1024); binsum (K3) at
    every shape and dtype of both paths (``binsum_cases``: field planes and
    lines in bf16, the flagship's bounce-ray parent gathers, segment sums,
    envmap SAT corners and retrace rows in f32), each also timed as the
@@ -48,15 +49,21 @@
    flagship with each knob of the budgets slice (hdr with the HDR and
    Linear curves, bf16 MLP operands, superstep 0 / 2 / 8, no fine alpha
    test, two-stage and merged shading, the retrace proposal with the
-   annealed pad), card against CPU. K3 is also held and
+   annealed pad), card against CPU; then the tiny flagship with each knob
+   of the heads slice (every direction encoder as the material head's
+   view and roughness encoder, pospe, the Hydra, MLP and passthrough
+   material heads, dotpe 0 / 2, sigexp, the envmap's softplus / clip /
+   identity activations and sh_grad), the tiny Ref-NeRF with every
+   reflection encoder, and the Specular module alone (at num_layers 0
+   and 1), card against CPU. K3 is also held and
    timed at C = 1 (Russian roulette's retrace counts, N = 1,024 into the
    flagship's 393,216 samples).
    The tiny checks run beside the main paths.
-4-20. The main paths run in three processes at once on the card (lanes,
+4-21. The main paths run in three processes at once on the card (lanes,
    LANES: a step is bound by the host's launches, so the lanes fill
    each other's idle time), each lane's paths in turn: sphere (paths 4,
-   18, 11, 20, 17, 15), studio (7, 5, 6, 8, 9, 13, 10) and fields (14,
-   16, 19, 12). Two more processes generate the scenes of paths 5, 10,
+   18, 11, 20, 17, 15), studio (7, 5, 6, 8, 9, 13, 10) and fields (21,
+   14, 16, 19, 12). Two more processes generate the scenes of paths 5, 10,
    19 and 12 on the host. Each path's kernel counts are its lane's.
    A launch at a size that the kernel checks did not hold is held after
    every lane is done, on the ids it launched with (below).
@@ -203,7 +210,19 @@
    paused and evaluated. Both must clear 17 dB; at full width, the
    two-stage render's acc_map of a test view must equal the full
    render's, and setting both knobs must warn.
-   Every K1 / K2 / K3 launch of paths 8 to 20 must be at a size held
+21. The heads path: the flagship at its shipped widths on
+   synthetic_sphere with the shading heads' knobs: the material head's
+   view encoder IPE (degree 4; the target builds PE, as in nmf_tpu), its
+   roughness encoder RandRotISH (a degree-8 ListISH core and four rotated
+   degree-8 copies) and pospe 4; the BRDF's dot products and their IPE
+   (dotpe 2), sigexp and a degree-8 diffuse-vector encoder; the softplus
+   envmap with sh_grad (the SH projection's lookups take the diffuse
+   term's gradient: K3 at N = 20,000, C = 12, R = 691,456, held after the
+   lanes and timed L2-cold beside zeros + index_add_) and mipnoise 0.1
+   (no path draws its noise, ROADMAP C.12); 450 iterations, the upsample
+   at half, no rebuild. It prints the envmap's gradient norm at the first
+   step, which must be finite and above 0.
+   Every K1 / K2 / K3 launch of paths 8 to 21 must be at a size held
    by the kernel checks or held after the lanes on the ids it launched
    with; each must clear 17 dB.
 
@@ -463,13 +482,14 @@ FLAGSHIP_B = 4096
 # (B, K, full, backward, timed): K1/K2 at every shape the main paths launch
 # them with: the tensorf train step and the flagship's proposal pass
 # (forward only) at 4096 x 192; the flagship's primary pass after
-# resampling and its retrace pass, weights-only; the streaming eval's
-# blocks (a chunk of 4096 rays x 64 samples, full mode, forward only).
-# Then ragged shapes, checked in both modes and not timed.
+# resampling and its retrace pass, weights-only; the retrace pass after
+# its proposal (the budgets path, 1024 x 48); the streaming eval's blocks
+# (a chunk of 4096 rays x 64 samples, full mode, forward only). Then
+# ragged shapes, checked in both modes and not timed.
 COMPOSITE_CASES = (
     [(4096, 192, False, True, True), (4096, 192, True, True, True),
      (FLAGSHIP_B, 96, False, True, True), (1024, 96, False, True, True),
-     (4096, 64, True, False, True)]
+     (1024, 48, False, True, True), (4096, 64, True, False, True)]
     + [(B, K, full, True, False) for B, K in ((1000, 1), (1000, 33),
                                                (257, 1024))
        for full in (False, True)])
@@ -915,7 +935,7 @@ SMALL_FLAGSHIP = [
 
 def check_small_flagship(torch, dev, extra=(), what="small flagship",
                          weights=None, gt_normals=False, opt_cfg=None,
-                         grad_rtol=1e-3):
+                         grad_rtol=1e-3, base=SMALL_FLAGSHIP, grad_floor=0.0):
     """One train step (loss and every gradient) and one eval render of a
     tiny model=microfacet_tensorf2 (grid 16^3, envmap 32 x 64, 16 samples a
     ray, 8 after the proposal and 8 retraced, bounce budgets [512, 128], 32
@@ -929,14 +949,17 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship",
     ``opt_cfg``: an optimizer configuration whose first step's Adam first
     moments (the clipped, weight-decayed gradients) are compared too;
     ``grad_rtol``: the gradients' tolerance, relative to each tensor's
-    largest entry."""
+    largest entry; ``base``: the tiny model's overrides (a model without
+    an envmap, as Ref-NeRF, reports no thinning factor); ``grad_floor``:
+    every gradient's absolute tolerance grows by that share of the step's
+    largest gradient."""
     from nmf_tpu_torch import config, trainer
     from nmf_tpu_torch.builders import build_nmf
     from nmf_tpu_torch.data import load_dataset
     from nmf_tpu_torch.ops.draws import Draws
     from nmf_tpu_torch.render import render
 
-    cfg = config.compose([*SMALL_FLAGSHIP, *extra])
+    cfg = config.compose([*base, *extra])
     ds = load_dataset(cfg["dataset"], None, "train")
     rays_np, rgb_np = ds["all_rays"][:64], ds["all_rgbs"][:64]
     if weights is None:
@@ -951,8 +974,10 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship",
     for d in (dev, torch.device("cpu")):
         nmf = build_nmf(cfg["model"]["arch"], ds["scene_bbox"],
                         tuple(cfg["dataset"]["near_far"]), seed=0, device=d)
-        with torch.no_grad():
-            nmf.bg_module.mipbias.fill_(12.0)
+        bg = nmf.bg_module
+        if bg is not None:
+            with torch.no_grad():
+                bg.mipbias.fill_(12.0)
         # gradients on all
         opt = trainer.Optimizer(nmf, opt_cfg or trainer.OptimConfig())
         rays = torch.from_numpy(rays_np).to(d)
@@ -964,8 +989,10 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship",
         with torch.no_grad():
             image = render(nmf, rays, is_train=False,
                            draws=Draws(torch.Generator().manual_seed(2)),
-                           bg_cache=nmf.bg_module.prepare())[0]["rgb_map"]
-        runs.append([loss.detach(), m["thin_scale"], image]
+                           bg_cache=None if bg is None else bg.prepare()
+                           )[0]["rgb_map"]
+        runs.append([loss.detach(), m.get("thin_scale", loss.new_zeros(())),
+                     image]
                     + [t.grad for _, t, _ in
                        trainer.differentiated_tensors(nmf)
                        if t.grad is not None])
@@ -982,7 +1009,7 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship",
     top = max(float(b.abs().max()) for _, b in pairs[3:])
     for i, (a, b) in enumerate(pairs[3:]):
         scale = float(b.abs().max())
-        atol = (grad_rtol * scale + 1e-9
+        atol = (grad_rtol * scale + 1e-9 + grad_floor * top
                 + (1e-6 * top if b.dim() == 0 else 0.0))
         err = max(err, max_err(torch, [(a, b)], grad_rtol, atol,
                                f"{what} gradient {i}"))
@@ -996,6 +1023,7 @@ def check_small_flagship(torch, dev, extra=(), what="small flagship",
 # through the shading) in the tiny flagship
 PE_HEAD = ("model.arch.model.diffuse_module._target_="
            "modules.render_modules.MLPRender_PE")
+DM = "model.arch.model.diffuse_module"
 SMALL_TENSORF_OPTIONS = (
     ["field.init_mode=trig"], ["field.init_mode=unif"],
     ["field.init_mode=unifplane"], ["field.init_mode=randplane"],
@@ -2080,6 +2108,71 @@ def extras_path(config):
     return run
 
 
+# The heads path: the flagship at its shipped widths on synthetic_sphere
+# with the shading heads' knobs: the material head's view encoder IPE
+# (degree 4; the target builds PE, ROADMAP C.12), its roughness encoder
+# RandRotISH (a degree-8 ListISH core and four rotated degree-8 copies)
+# and pospe 4; the BRDF's dot products with their IPE (dotpe 2), the
+# sigexp activation and a degree-8 diffuse-vector encoder; the softplus
+# envmap with sh_grad (the SH projection's 5,000 lookups take the diffuse
+# term's gradient: K3 at N = 20,000 SAT corner rows, C = 12, R = 691,456)
+# and mipnoise 0.1, which no path draws (C.12). Cut as the flagship path:
+# 450 iterations, the upsample at half, no rebuild (C.2).
+HEADS_ITERS = FLAGSHIP_ITERS
+HEADS_KNOBS = [
+    f"{DM}.view_encoder._target_=modules.render_modules.IPE",
+    f"{DM}.view_encoder.max_degree=4",
+    f"{DM}.roughness_view_encoder._target_=modules.ish.RandRotISH",
+    f"{DM}.pospe=4", "model.arch.model.brdf.dotpe=2",
+    "model.arch.model.brdf.activation=sigexp",
+    "model.arch.model.brdf.d_encoder.degs=[0,1,2,4,8]",
+    "model.arch.bg_module.activation=softplus",
+    "model.arch.bg_module.sh_grad=true", "model.arch.bg_module.mipnoise=0.1"]
+HEADS = ["model=microfacet_tensorf2", "dataset=synthetic_sphere",
+         f"model.params.n_iters={HEADS_ITERS}",
+         f"field.upsamp_list=[{HEADS_ITERS // 2}]",
+         "model.arch.sampler.update_list=[]", *HEADS_KNOBS, "device=cuda",
+         f"basedir={LOG_DIR}", "expname=heads", "progress_refresh_rate=50"]
+SH_SAT_ROWS = (592, 1168, 50 * 100 * 4)  # SAT rows, columns, corner rows
+
+
+def heads_path(config):
+    """The run of the heads path for ``drive_main_path``: it prints the
+    envmap's gradient norm at the first train step (the map's gradient
+    through the lookups and, with sh_grad, the SH projection), which must
+    be finite and above 0."""
+    from nmf_tpu_torch import trainer
+    from nmf_tpu_torch.train import reconstruction
+
+    cfg = config.compose(HEADS)
+
+    def run(log):
+        first = []
+        step = trainer.train_step
+
+        def recorded(nmf, *args, **kwargs):
+            metrics = step(nmf, *args, **kwargs)
+            if not first:
+                grad = nmf.bg_module.bg_mat.grad
+                first.append(0.0 if grad is None else float(grad.norm()))
+            return metrics
+
+        trainer.train_step = recorded
+        try:
+            res = reconstruction(cfg, log=log)[1]
+        finally:
+            trainer.train_step = step
+        print(f"heads: the envmap's bg_mat gradient norm at the first step "
+              f"{first[0]:.6e}")
+        if not (math.isfinite(first[0]) and first[0] > 0):
+            fail(f"heads: the first step's envmap gradient norm is "
+                 f"{first[0]}")
+        return res, res["train_seconds"], (
+            f", first-step bg_mat gradient norm {first[0]:.4e}")
+
+    return run
+
+
 def paused_run(config, overrides, log, *renders):
     """Train ``overrides`` to its stop_iter pause, then render_only the
     pause checkpoint once per entry of ``renders`` (extra overrides).
@@ -2501,6 +2594,127 @@ def check_small_budgets(torch, dev):
         errs[what] = check_small_flagship(
             torch, dev, extra, what,
             grad_rtol=5e-2 if "mlp_dtype=bf16" in extra[0] else 1e-3)
+    for what, err in errs.items():
+        print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
+    return errs
+
+
+# The shading heads' knobs, in the tiny flagship (and the tiny Ref-NeRF for
+# the reflection encoder): every direction encoder as the material head's
+# view encoder and, shifted by one, as its roughness encoder (the first
+# pair with pospe 4: the heads path's); every encoder as Ref-NeRF's
+# reflection encoder; the other material heads; the BRDF's dotpe and
+# sigexp; the envmap's other activations and sh_grad (the map's gradient
+# among those compared)
+ENCODERS = (("modules.ish.ListISH", ["degs=[0,1,2,4,8]"]),
+            ("modules.ish.FullISH", ["max_degree=4"]),
+            ("modules.ish.FullISHScaled", ["max_degree=3"]),
+            ("modules.render_modules.IPE", ["max_degree=4"]),  # builds PE
+            ("modules.ish.ISH", ["max_degree=4"]),
+            ("modules.ish.RandISH", []),
+            ("modules.ish.RandRotISH", []))
+SMALL_REFNERF = ["model=refnerf", *SMALL_FLAGSHIP[1:9],
+                 "model.arch.sampler.update_list=[]"]
+
+
+def encoder_overrides(key, i):
+    target, kw = ENCODERS[i % len(ENCODERS)]
+    return [f"{key}._target_={target}", *(f"{key}.{o}" for o in kw)]
+
+
+SMALL_HEADS_OPTIONS = (
+    *([*encoder_overrides(f"{DM}.view_encoder", i + 3),
+       *encoder_overrides(f"{DM}.roughness_view_encoder", i + 6),
+       *([f"{DM}.pospe=4"] if i == 0 else [])]
+      for i in range(len(ENCODERS))),
+    [f"{DM}._target_=modules.render_modules.HydraMLPDiffuse",
+     f"{DM}.featureC=16", f"{DM}.num_layers=2"],
+    [f"{DM}._target_=modules.render_modules.MLPDiffuse", f"{DM}.pospe=2",
+     f"{DM}.featureC=16", f"{DM}.num_layers=2"],
+    [f"{DM}._target_=modules.render_modules.PassthroughDiffuse"],
+    ["model.arch.model.brdf.dotpe=0"], ["model.arch.model.brdf.dotpe=2"],
+    ["model.arch.model.brdf.activation=sigexp"],
+    *([f"model.arch.bg_module.activation={a}"]
+      for a in ("softplus", "clip", "identity")),
+    ["model.arch.bg_module.sh_grad=true"])
+
+
+def check_small_specular(torch, dev):
+    """The Specular BRDF alone (nmf_tpu's Microfacet cannot build it,
+    ROADMAP C.12), at num_layers 0 (C0 the identity of the features) and
+    1: its weights of 4096 random bounce rays and their gradients to the
+    features, the local vectors and C0's MLP, card against CPU. Returns
+    the largest error."""
+    import copy
+
+    from nmf_tpu_torch.modules.brdf import init_specular
+
+    gen = torch.Generator().manual_seed(5)
+    R, err = 4096, 0.0
+
+    def unit():
+        v = torch.randn((R, 3), generator=gen)
+        v = v / v.norm(dim=-1, keepdim=True)
+        return v * torch.sign(v[:, 2:3])
+
+    args = [unit() for _ in range(7)] + [
+        torch.randn((R, 24), generator=gen) * 0.5,
+        0.05 + 0.85 * torch.rand(R, generator=gen),
+        0.05 + 0.85 * torch.rand(R, generator=gen)]
+    for num_layers in (0, 1):
+        spec = init_specular(24, bias=0.2, hidden_w=16,
+                             num_layers=num_layers, generator=gen)
+        runs = []
+        for d, mod in ((dev, copy.deepcopy(spec).to(dev)),
+                       (torch.device("cpu"), spec)):
+            ins = [a.to(d).clone().requires_grad_(i >= 4)
+                   for i, a in enumerate(args)]
+            out = mod(*ins)
+            (out ** 2).sum().backward()
+            runs.append([out.detach()] + [a.grad for a in ins[4:]]
+                        + [p.grad for p in mod.parameters()])
+        pairs = [(a.cpu(), b) for a, b in zip(*runs)]
+        err = max(err, max_err(torch, pairs[:1], 1e-4, 1e-5,
+                               f"small Specular {num_layers} weights"))
+        for i, (a, b) in enumerate(pairs[1:]):
+            err = max(err, max_err(
+                torch, [(a, b)], 1e-3, 1e-4 * float(b.abs().max()) + 1e-9,
+                f"small Specular {num_layers} gradient {i}"))
+    return err
+
+
+def check_small_heads(torch, dev):
+    """The heads slice on the card against the CPU, at
+    ``check_small_extras``' tolerances: one train step and one eval render
+    of the tiny flagship with each knob of ``SMALL_HEADS_OPTIONS``, of the
+    tiny Ref-NeRF with each reflection encoder, and the Specular module
+    alone. RandISH's bases sum Legendre polynomials of degree up to 9 in
+    monomials, whose coefficients reach 95 (P_9): f32 evaluates them to
+    ~1e-5 of their value, and the card's pow rounds otherwise than the
+    CPU's. As the material head's view encoder that moved the appearance
+    planes' and lines' gradients (their largest 3e-6 to 1e-5 of the step's
+    largest gradient, sums of terms that cancel) by up to 1.5e-6 of the
+    step's largest gradient (one run on an H100): with a RandISH encoder
+    every gradient also gets 5e-6 of it. Prints and returns {check:
+    max_abs_err}."""
+    def label(o):
+        k, v = o.split("=", 1)
+        return ".".join(k.split(".")[-2:]) + "=" + v.rsplit(".", 1)[-1]
+
+    errs = {}
+    for extra in SMALL_HEADS_OPTIONS:
+        what = "flagship " + " ".join(map(label, extra))
+        floor = 5e-6 if any(o.endswith("ish.RandISH") for o in extra) \
+            else 0.0
+        errs[what] = check_small_flagship(torch, dev, extra, what,
+                                          grad_floor=floor)
+    for i in range(len(ENCODERS)):
+        extra = encoder_overrides("model.arch.model.ref_module.ref_encoder",
+                                  i)
+        what = f"refnerf ref_encoder {ENCODERS[i][0].rsplit('.', 1)[-1]}"
+        errs[what] = check_small_flagship(torch, dev, extra, what,
+                                          base=SMALL_REFNERF)
+    errs["Specular module"] = check_small_specular(torch, dev)
     for what, err in errs.items():
         print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
     return errs
@@ -3170,7 +3384,7 @@ PATH_ORDER = ("tensorf", "microfacet_tensorf2", "studio", "blender",
               "lego_size", "relight", "compose", "dual_scene", "hdr",
               "budgets", "extras", "occgrid", "occgrid_crop", "llff",
               "refnerf_studio", "refnerf_tcnn", "dualref", "grid",
-              "tensorf_pe")
+              "tensorf_pe", "heads")
 
 
 def host_entry(entry):
@@ -3320,8 +3534,9 @@ def lane_studio(lane, config):
 
 
 def lane_fields(lane, config):
-    """refnerf_tcnn and grid, then the paths on the workers' scene files:
-    hdr and llff."""
+    """heads, refnerf_tcnn and grid, then the paths on the workers' scene
+    files: hdr and llff."""
+    lane.drive("heads", heads_path(config), HEADS_ITERS)
     lane.drive("refnerf_tcnn", refnerf_tcnn_path(lane.torch, config),
                REFNERF_TCNN_ITERS)
     lane.drive("grid", grid_path(lane.torch, config), GRID_ITERS)
@@ -3462,6 +3677,7 @@ def main():
     check_small_relight(torch, dev)
     check_small_extras(torch, dev)
     check_small_budgets(torch, dev)
+    check_small_heads(torch, dev)
     check_multirun(multirun, t_multirun)
     print(f"chip_smoke: tiny checks done at {time.time() - t_start:.1f} s")
     reports = finish_lanes(lanes)
@@ -3513,6 +3729,14 @@ def main():
           f"{stream_k1}")
     if not stream_k1:
         fail("tensorf_pe: K1 never composited a streaming block")
+    rows, cols, corners = SH_SAT_ROWS
+    sh_k3 = {size: n for size, n in by_size["heads"]["binsum_rows"].items()
+             if size[:3] == (corners, 12, rows * cols)}
+    print(f"heads: K3 launches on the SH projection's SAT corners (N, C, R, "
+          f"dtype code): {sh_k3}, {sum(sh_k3.values()) / HEADS_ITERS} a "
+          "train step")
+    if not sh_k3:
+        fail("heads: K3 never scattered the SH projection's gradient")
     retrace = by_size["dualref"]["composite_fwd"].get((1024, 96), 0)
     print(f"dualref: K1 launches at the retrace shape 1024 x 96: {retrace}")
     if not retrace:

@@ -6,13 +6,16 @@ voxel field GridRF / Grid), the AlphaGridSampler and the occupancy-grid
 sampler (which the upstream NerfAccSampler / Raymarcher /
 ContinuousAlphagrid targets map onto), the TensoRF (MLPRender_Fea or
 MLPRender_PE head), Microfacet, RefNeRF and DualModel shading models
-(RandHydraMLPDiffuse, MLPBRDF with ListISH encoders; GGX, Beckmann,
-cosine-lobe or mixed bounce sampling; the VisibilityMLP cache and the
-bright-ray samplers), the MLPNormal / AppDimNormal normal modules, the
-IntegralEquirect envmap, the SRGB / HDR / Linear tonemaps, bf16 MLP
-operands (``mlp_dtype``) and the renderer's sample budgets.
-Every other target and knob raises ``NotImplementedError`` naming the
-slice that brings it.
+(the material heads RandHydraMLPDiffuse, HydraMLPDiffuse, MLPDiffuse and
+PassthroughDiffuse; MLPBRDF with every activation and ``dotpe``; every
+direction encoder of nmf_tpu's; GGX, Beckmann, cosine-lobe or mixed
+bounce sampling; the VisibilityMLP cache and the bright-ray samplers),
+the MLPNormal / AppDimNormal normal modules, the IntegralEquirect envmap
+with its activations, ``mipnoise`` and ``sh_grad``, the SRGB / HDR /
+Linear tonemaps, bf16 MLP operands (``mlp_dtype``) and the renderer's
+sample budgets. The targets nmf_tpu itself cannot run (a Specular BRDF in
+a Microfacet, an SHBasis encoder) raise naming ROADMAP C.12; every other
+unported target raises ``NotImplementedError`` naming A.4.
 """
 import math
 
@@ -28,10 +31,12 @@ from .modules.bg import init_integral_equirect
 from .modules.brdf import init_mlp_brdf
 from .modules.brdf_samplers import (BeckmannSampler, CosineLobeSampler,
                                     GGXSampler, MultiSampler)
-from .modules.ish import ListISH
+from .modules.ish import (ISH, FullISH, FullISHScaled, ListISH, RandISH,
+                          RandRotISH)
 from .modules.mlp import set_mlp_dtype
-from .modules.render_modules import (AppDimNormal, RandHydraMLPDiffuse,
-                                     init_mlp_normal)
+from .modules.render_modules import (PE, AppDimNormal, HydraMLPDiffuse,
+                                     MLPDiffuse, PassthroughDiffuse,
+                                     RandHydraMLPDiffuse, init_mlp_normal)
 from .modules.visibility import (CubeBrightSampler, ERBrightSampler,
                                  init_visibility_mlp)
 from .render import NMF
@@ -39,7 +44,7 @@ from .samplers.alphagrid import AlphaGridSampler
 from .samplers.occgrid import OccGridSampler
 
 _LATER = ("is not ported yet: it comes with a later slice of nmf_tpu_torch "
-          "(ROADMAP A.2 / A.4)")
+          "(ROADMAP A.4)")
 
 
 def _target(cfg):
@@ -132,31 +137,65 @@ def build_sampler(cfg, aabb, near_far):
 
 
 def build_encoder(cfg):
+    """A direction encoder by nmf_tpu's target suffixes, in its order. As
+    in nmf_tpu, an ``IPE`` target ends with ``PE`` and builds PE (ROADMAP
+    C.12): the IPE encoder is reached only directly. nmf_tpu builds an
+    ``SHBasis`` target that fails at its first call (it takes angles, not
+    directions); the port raises here, naming C.12."""
     if not cfg:
         return None
     t = _target(cfg)
-    if not t.endswith("ListISH"):
-        raise NotImplementedError(f"encoder {t!r} {_LATER}")
-    return ListISH(degs=tuple(_clean(cfg).get("degs", (0, 1, 2, 4))))
+    kw = _clean(cfg)
+    if t.endswith("ListISH"):
+        return ListISH(degs=tuple(kw.get("degs", (0, 1, 2, 4))))
+    if t.endswith("FullISH"):
+        return FullISH(max_degree=kw.get("max_degree", 1))
+    if t.endswith("PE"):
+        return PE(max_degree=kw.get("max_degree", 8))
+    if t.endswith("FullISHScaled"):
+        return FullISHScaled(max_degree=kw.get("max_degree", 1))
+    if t.endswith("RandRotISH"):
+        return RandRotISH(rand_n=kw.get("rand_n", 4),
+                          core_degs=tuple(kw.get("core_degs", (1, 2, 4, 8))),
+                          rand_degs=tuple(kw.get("rand_degs", (8,))))
+    if t.endswith("RandISH"):
+        return RandISH(rand_n=kw.get("rand_n", 8), std=kw.get("std", 10.0))
+    if t.endswith("SHBasis"):
+        raise NotImplementedError(
+            f"encoder {t!r}: SHBasis takes (theta, phi, kappa), not an "
+            "encoder's (directions, roughness); nmf_tpu builds it and fails "
+            "at its first call (ROADMAP C.12)")
+    if t.endswith("ISH"):
+        return ISH(max_degree=kw.get("max_degree", 1))
+    raise ValueError(f"unknown encoder target {t}")
+
+
+# the keys RandHydraMLPDiffuse reads (nmf_tpu's init_rand_hydra_diffuse)
+RAND_HYDRA_KEYS = {"pospe", "feape", "hidden_w", "num_layers", "initializer",
+                   "lr", "start_roughness", "tint_bias", "diffuse_bias",
+                   "diffuse_mul", "roughness_bias", "f0_bias",
+                   "roughness_cfg"}
 
 
 def build_diffuse(generator, dm_cfg, app_dim):
-    """The material head: RandHydraMLPDiffuse (the one ported)."""
+    """The material head by nmf_tpu's target suffixes, in its order
+    (RandHydraMLPDiffuse ends with HydraMLPDiffuse, which ends with
+    MLPDiffuse); RandHydraMLPDiffuse when none is given."""
     dt = _target(dm_cfg)
-    if dt and not dt.endswith("RandHydraMLPDiffuse"):
-        raise NotImplementedError(f"diffuse module {dt!r} {_LATER}")
-    dm_kw = _clean(dm_cfg)
-    for key in ("view_encoder", "roughness_view_encoder"):
-        if dm_kw.pop(key, None):
-            raise NotImplementedError(f"diffuse_module.{key} {_LATER}")
-    if int(dm_kw.pop("pospe", -1)) >= 0:
-        raise NotImplementedError(f"diffuse_module.pospe >= 0 {_LATER}")
-    allowed = {"feape", "hidden_w", "num_layers", "initializer", "lr",
-               "start_roughness", "tint_bias", "diffuse_bias", "diffuse_mul",
-               "roughness_bias", "f0_bias", "roughness_cfg"}
-    return RandHydraMLPDiffuse(app_dim, generator=generator,
-                               **{k: v for k, v in dm_kw.items()
-                                  if k in allowed})
+    kw = _clean(dm_cfg)
+    if dt.endswith("PassthroughDiffuse"):
+        return PassthroughDiffuse()
+    if dt.endswith("RandHydraMLPDiffuse") or not dt:
+        encoders = {k: build_encoder(kw.get(k)) for k in (
+            "view_encoder", "roughness_view_encoder")}
+        return RandHydraMLPDiffuse(app_dim, generator=generator, **encoders,
+                                   **{k: v for k, v in kw.items()
+                                      if k in RAND_HYDRA_KEYS})
+    if dt.endswith("HydraMLPDiffuse"):
+        return HydraMLPDiffuse(app_dim, generator=generator, **kw)
+    if dt.endswith("MLPDiffuse"):
+        return MLPDiffuse(app_dim, generator=generator, **kw)
+    raise ValueError(f"unknown diffuse module {dt}")
 
 
 def build_brdf_sampler(cfg):
@@ -214,6 +253,12 @@ def build_microfacet(generator, kw, app_dim):
 
     brdf_cfg = kw.pop("brdf", None) or {}
     bt = _target(brdf_cfg)
+    if bt.endswith("Specular"):
+        raise NotImplementedError(
+            f"brdf {bt!r}: nmf_tpu's Microfacet cannot build the Specular "
+            "BRDF (its init sets init_val, a field Specular lacks: "
+            "TypeError); modules.brdf.Specular is reached only directly "
+            "(ROADMAP C.12)")
     if bt and not bt.endswith("MLPBRDF"):
         raise NotImplementedError(f"brdf {bt!r} {_LATER}")
     brdf_kw = _clean(brdf_cfg)

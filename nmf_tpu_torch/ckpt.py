@@ -168,9 +168,11 @@ def save_envmap(path, bg_module, config=None):
     its four arrays and its settings, numpy arrays and builtins only."""
     envmap = {k: getattr(bg_module, k).detach().float().cpu().numpy()
               for k in _ENVMAP_LEAVES}
-    envmap.update(activation="exp", mipnoise=0.0, sh_grad=False,
+    envmap.update(activation=bg_module.activation,
+                  sh_grad=bool(bg_module.sh_grad),
                   **{k: float(getattr(bg_module, k))
-                     for k in _ENVMAP_SETTINGS[3:]})
+                     for k in _ENVMAP_SETTINGS if k not in (
+                         "activation", "sh_grad")})
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as f:

@@ -27,7 +27,16 @@ Options (each off in the shipped configs):
   sum of one column);
 - ``diffuse_mixing_mode``: ``fresnel`` (the default), ``fresnel_ind`` (the
   fresnel mix without the BRDF weight), ``no_diffuse`` or ``lambda`` (the
-  tint's mean blends the specular and diffuse terms).
+  tint's mean blends the specular and diffuse terms);
+- the envmap's ``sh_grad``: the diffuse irradiance's gradient reaches the
+  envmap through its SH projection (the normals stay detached).
+
+A material head whose f0 is one column (``MLPDiffuse``) has it broadcast
+to three before the packed row gather. nmf_tpu packs the one column and
+reads the row two columns off, so its per-ray count reads the sample's
+first slot, 0 for the first sample with rays; its division by that count
+gives an infinite tint map and non-finite gradients, and a train step's
+loss turns NaN through its zero-weighted ``brdf_reg`` (ROADMAP C.12).
 """
 import torch
 import torch.nn as nn
@@ -142,7 +151,11 @@ class Microfacet(nn.Module):
                 bg_cache is not None and "sh_conv_coeffs" in bg_cache) else \
                 bg_module.get_spherical_harmonics(100, cache=bg_cache)[1]
             evaled = sh.eval_sh_bases(conv.shape[0], normals.detach())
-            E = (conv.detach()[None] * evaled[..., None]).sum(dim=1)
+            if not getattr(bg_module, "sh_grad", False):
+                conv = conv.detach()
+            # with sh_grad the envmap's SH projection takes the diffuse
+            # term's gradient; the normals stay detached either way
+            E = (conv[None] * evaled[..., None]).sum(dim=1)
             diffuse = albedo * E
         else:
             diffuse = albedo
@@ -177,7 +190,8 @@ class Microfacet(nn.Module):
         Cf = noise_app.shape[-1]
         parent = torch.cat([
             viewdirs, normals, matprop["r1"][:, :1], noise_app, xyz[:, :3],
-            matprop["f0"], diffuse, counts[:, None].to(torch.float32),
+            matprop["f0"].expand(M, 3), diffuse,
+            counts[:, None].to(torch.float32),
             w[:, None], ray_count[:, None], starts[:, None].to(torch.float32),
         ], dim=-1)
         P = take_rows_binsum(parent, src)

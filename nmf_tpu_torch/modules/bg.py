@@ -5,19 +5,26 @@ filtering (``nmf_tpu/modules/bg.py``, ``IntegralEquirect``).
 pole-mirror rows (across a pole the map continues flipped and rotated by
 180 degrees of azimuth) and periodic columns, so every lookup box is one
 rectangle of the extended table; its SAT; the pole rows' means; and the SH
-irradiance coefficients (no gradient). A lookup reads the box integral from
-the SAT's four corners, each one quad-table row gathered by ``TakeRows``,
-whose backward is the ``binsum_rows`` kernel.
+irradiance coefficients (no gradient, unless ``sh_grad``: then the diffuse
+shading term trains the map through them, nmf_tpu's opt-in extension). A
+lookup reads the box integral from the SAT's four corners, each one
+quad-table row gathered by ``TakeRows``, whose backward is the
+``binsum_rows`` kernel.
+
+The map is ``activation(brightness + mul * bg_mat)``: exp (clipped at
+20), softplus(6 x) / 6, clip at 1e-3 from below, or the identity.
+``mipnoise`` adds U(0, mipnoise) draws to a lookup's mip levels when the
+caller gives draws; as in nmf_tpu, no caller does.
 """
 import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops import sh
 from ..ops.grid_sample import quad_gather_2d
 from ..ops.safemath import EPS, safe_atan2
-from .brdf import LATER
 
 SAT_SCALE = 1000.0
 SAT_PAD = 72    # periodic columns on each side
@@ -49,18 +56,17 @@ def _integrate_box(bl, br, tl, tr, size, cum_mat, W, H):
 
 class IntegralEquirect(nn.Module):
     def __init__(self, bg_resolution=512, init_val=-0.6, activation="exp",
-                 mipbias=1.0, lr=0.02, mipbias_lr=1e-4, brightness_lr=0.0,
-                 mul_lr=0.0):
+                 mipbias=1.0, mipnoise=0.0, lr=0.02, mipbias_lr=1e-4,
+                 brightness_lr=0.0, mul_lr=0.0, sh_grad=False):
         super().__init__()
         self.bg_mat = nn.Parameter(torch.full(
             (3, bg_resolution, 2 * bg_resolution), float(init_val)))
         self.mipbias = nn.Parameter(torch.tensor(float(mipbias)))
         self.brightness = nn.Parameter(torch.tensor(0.0))
         self.mul = nn.Parameter(torch.tensor(1.0))
-        if activation != "exp":
-            raise NotImplementedError(
-                f"bg_module.activation={activation!r} is not ported yet "
-                f"(only exp):{LATER}")
+        self.activation = activation
+        self.mipnoise = float(mipnoise)
+        self.sh_grad = bool(sh_grad)
         self.lr = float(lr)
         self.mipbias_lr = float(mipbias_lr)
         self.brightness_lr = float(brightness_lr)
@@ -70,7 +76,14 @@ class IntegralEquirect(nn.Module):
         return self.bg_mat.shape[-2], self.bg_mat.shape[-1]
 
     def activation_fn(self, x):
-        return torch.exp(torch.clamp(self.brightness + self.mul * x, max=20))
+        x = self.brightness + self.mul * x
+        if self.activation == "softplus":
+            return F.softplus(6.0 * x) / 6.0
+        if self.activation == "clip":
+            return torch.clamp(x, min=1e-3)
+        if self.activation == "identity":
+            return x
+        return torch.exp(torch.clamp(x, max=20))
 
     def mean_color(self):
         return self.activation_fn(self.bg_mat).reshape(3, -1).mean(dim=-1)
@@ -91,7 +104,8 @@ class IntegralEquirect(nn.Module):
     def prepare(self, with_sh: bool = True):
         """The per-step cache: extended SAT ``cum_mat``, the pole rows'
         means ``top_row`` / ``bot_row`` and, with ``with_sh``, the
-        Lambertian-convolved SH coefficients ``sh_conv_coeffs`` (9, 3)."""
+        Lambertian-convolved SH coefficients ``sh_conv_coeffs`` (9, 3),
+        differentiable with ``sh_grad``."""
         activated = self.activation_fn(self.bg_mat)
         H, W = activated.shape[-2], activated.shape[-1]
         V = min(SAT_VPAD, H - 1)
@@ -108,7 +122,8 @@ class IntegralEquirect(nn.Module):
             "bot_row": activated[:, -1, :].mean(dim=-1),
         }
         if with_sh:
-            with torch.no_grad():
+            with torch.set_grad_enabled(self.sh_grad
+                                        and torch.is_grad_enabled()):
                 cache["sh_conv_coeffs"] = self.get_spherical_harmonics(
                     100, cache=cache)[1]
         return cache
@@ -127,12 +142,20 @@ class IntegralEquirect(nn.Module):
         mip_h = torch.log(fh) / math.log(2) + self.mipbias
         return torch.clamp(mip_w, 0, 7), torch.clamp(mip_h, 0, 7)
 
-    def forward(self, viewdirs, sa_sample, cache=None):
-        """viewdirs (N, 3); sa_sample (N,) log solid angle -> (N, 3)."""
+    def forward(self, viewdirs, sa_sample, cache=None, draws=None):
+        """viewdirs (N, 3); sa_sample (N,) log solid angle -> (N, 3). With
+        ``mipnoise`` and ``draws``, the uniform draws ``mip_w`` and ``mip_h``
+        (N,) jitter the mip levels."""
         if cache is None:
             cache = self.prepare()
         h, w = self.hw()
         mip_w, mip_h = self.sa2mip(viewdirs, sa_sample.reshape(-1))
+        if self.mipnoise > 0 and draws is not None:
+            dev = viewdirs.device
+            mip_w = torch.clamp(mip_w + self.mipnoise * draws.uniform(
+                "mip_w", mip_w.shape, dev), 0, 7)
+            mip_h = torch.clamp(mip_h + self.mipnoise * draws.uniform(
+                "mip_h", mip_h.shape, dev), 0, 7)
         sw = 2.0 ** mip_w / h / 2
         shh = 2.0 ** mip_h / h
         offset = torch.stack([sw, shh], dim=-1)
@@ -186,11 +209,6 @@ def init_integral_equirect(bg_resolution=512, init_val=-0.6,
                            activation="exp", mipbias=1.0, mipnoise=0.0,
                            lr=0.02, mipbias_lr=1e-4, brightness_lr=0.0,
                            mul_lr=0.0, sh_grad=False, **_):
-    if mipnoise:
-        raise NotImplementedError(
-            f"bg_module.mipnoise > 0 is not ported yet:{LATER}")
-    if sh_grad:
-        raise NotImplementedError(
-            f"bg_module.sh_grad is not ported yet:{LATER}")
-    return IntegralEquirect(bg_resolution, init_val, activation, mipbias, lr,
-                            mipbias_lr, brightness_lr, mul_lr)
+    return IntegralEquirect(bg_resolution, init_val, activation, mipbias,
+                            mipnoise, lr, mipbias_lr, brightness_lr, mul_lr,
+                            sh_grad)

@@ -62,5 +62,5 @@ class MultiBG(nn.Module):
                                 cache=None):
         return self.active.get_spherical_harmonics(G, mipval, cache=cache)
 
-    def forward(self, viewdirs, sa_sample, cache=None):
-        return self.active(viewdirs, sa_sample, cache=cache)
+    def forward(self, viewdirs, sa_sample, cache=None, draws=None):
+        return self.active(viewdirs, sa_sample, cache=cache, draws=draws)

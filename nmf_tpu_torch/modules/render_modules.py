@@ -1,7 +1,17 @@
 """Appearance, material and normal heads
-(``nmf_tpu/modules/render_modules.py``): ``PE``, ``MLPRenderFea`` and
-``MLPRenderPE`` (tensorf), ``RandHydraMLPDiffuse`` (microfacet), and the predicted-normal
-heads ``MLPNormal`` and ``AppDimNormal``."""
+(``nmf_tpu/modules/render_modules.py``): the ``PE`` and ``IPE`` encoders,
+``MLPRenderFea`` and ``MLPRenderPE`` (tensorf), the material heads
+``RandHydraMLPDiffuse``, ``HydraMLPDiffuse``, ``MLPDiffuse`` and
+``PassthroughDiffuse`` (microfacet, Ref-NeRF), and the predicted-normal
+heads ``MLPNormal`` and ``AppDimNormal``.
+
+A material head maps (pts (M, 4): position and footprint, viewdirs,
+features) to (albedo (M, 3), tint (M, 3), matprop), where matprop holds
+``diffuse``, ``tint``, the roughnesses ``r1`` / ``r2`` (M, 1) and ``f0``
+((M, 3); ``MLPDiffuse``'s is (M, 1), as nmf_tpu's). Its ``calibrate``
+shifts its frozen ``diffuse_bias`` / ``roughness_bias`` (state-dict
+leaves) so the initial albedo and roughness hit their targets.
+"""
 import math
 
 import torch
@@ -25,6 +35,41 @@ class PE(nn.Module):
 
     def forward(self, x, roughness=None):
         return positional_encoding(x, self.max_degree)
+
+
+class IPE(PE):
+    """Integrated positional encoding of directions whose variance is the
+    roughness (N,), broadcast over the last axis."""
+
+    def forward(self, viewdirs, roughness):
+        size = roughness.reshape(-1, 1).expand(viewdirs.shape)
+        return integrated_pos_enc((viewdirs, size), 0, self.max_degree)
+
+
+def _point_inputs(pts, features, pospe, feape):
+    """[xyz] + [IPE(xyz, footprint)] + [features] + [PE(features)], each
+    present by ``pospe`` / ``feape`` (>= 0 adds the raw input, > 0 its
+    encoding of that many degrees)."""
+    p3 = pts[..., :3]
+    indata = []
+    if pospe >= 0:
+        indata.append(p3)
+    if pospe > 0:
+        size = pts[..., 3:4].expand(p3.shape)
+        indata.append(integrated_pos_enc((p3, size), 0, pospe))
+    if feape >= 0:
+        indata.append(features)
+    if feape > 0:
+        indata.append(positional_encoding(features, feape))
+    return indata
+
+
+def _point_width(in_channels, pospe, feape):
+    """The width of ``_point_inputs``."""
+    width = 2 * pospe * 3 + 3 if pospe >= 0 else 0
+    if feape >= 0:
+        width += 2 * max(feape, 0) * in_channels + in_channels
+    return width
 
 
 class MLPRenderFea(nn.Module):
@@ -81,28 +126,41 @@ class MLPRenderPE(nn.Module):
 
 class RandHydraMLPDiffuse(nn.Module):
     """The microfacet material head: albedo, tint, f0 and roughness from
-    one-layer MLPs of the appearance features, with calibrated diffuse and
-    roughness biases (frozen) and train-time noise of scale ``std``."""
+    MLPs of the point inputs (``_point_inputs``) and, with a
+    ``view_encoder``, its encoding of the view direction and the direction;
+    the roughness MLP also reads the ``roughness_view_encoder``'s (both
+    encoders at roughness 1e-3). Calibrated diffuse and roughness biases
+    (frozen) and train-time noise of scale ``std``."""
 
-    def __init__(self, in_channels, feape=0, hidden_w=64, num_layers=1,
-                 initializer="xavier_sigmoid", lr=1e-3, start_roughness=0.35,
-                 tint_bias=0.0, diffuse_bias=-0.619, diffuse_mul=1.5,
-                 roughness_bias=-1.0, f0_bias=0.0, roughness_cfg=None,
-                 generator=None):
+    def __init__(self, in_channels, pospe=-1, feape=0, hidden_w=64,
+                 num_layers=1, initializer="xavier_sigmoid", lr=1e-3,
+                 start_roughness=0.35, tint_bias=0.0, diffuse_bias=-0.619,
+                 diffuse_mul=1.5, roughness_bias=-1.0, f0_bias=0.0,
+                 roughness_cfg=None, view_encoder=None,
+                 roughness_view_encoder=None, generator=None):
         super().__init__()
+        self.pospe = int(pospe)
         self.feape = int(feape)
-        in_mlpC = 2 * max(self.feape, 0) * in_channels + in_channels
+        self.view_encoder = view_encoder
+        self.roughness_view_encoder = roughness_view_encoder
+        in_mlpC = _point_width(in_channels, self.pospe, self.feape)
+        if view_encoder is not None:
+            in_mlpC += view_encoder.dim() + 3
+        rough_in = in_mlpC
+        if roughness_view_encoder is not None:
+            rough_in += roughness_view_encoder.dim() + 3
         rc = roughness_cfg or {"hidden_w": hidden_w,
                                "num_layers": num_layers}
 
-        def mlp(out, hw, nl):
-            return MLP(in_mlpC, out, num_layers=nl, hidden_w=hw,
+        def mlp(width, out, hw, nl):
+            return MLP(width, out, num_layers=nl, hidden_w=hw,
                        generator=generator, initializer=initializer)
 
-        self.diffuse_mlp = mlp(3, hidden_w, num_layers)
-        self.tint_mlp = mlp(3, hidden_w, num_layers)
-        self.f0_mlp = mlp(3, hidden_w, num_layers)
-        self.roughness_mlp = mlp(2, rc["hidden_w"], rc["num_layers"])
+        self.diffuse_mlp = mlp(in_mlpC, 3, hidden_w, num_layers)
+        self.tint_mlp = mlp(in_mlpC, 3, hidden_w, num_layers)
+        self.f0_mlp = mlp(in_mlpC, 3, hidden_w, num_layers)
+        self.roughness_mlp = mlp(rough_in, 2, rc["hidden_w"],
+                                 rc["num_layers"])
         self.diffuse_bias = nn.Parameter(torch.tensor(float(diffuse_bias)))
         self.roughness_bias = nn.Parameter(
             torch.tensor(float(roughness_bias)))
@@ -116,13 +174,23 @@ class RandHydraMLPDiffuse(nn.Module):
         """-> (albedo (M, 3), tint (M, 3), matprop). With ``draws``, the
         normal draws ``diffuse_noise`` (M, 3) and ``roughness_noise`` (M, 2)
         times ``std`` perturb albedo and roughness."""
-        indata = [features]
-        if self.feape > 0:
-            indata.append(positional_encoding(features, self.feape))
+        indata = _point_inputs(pts, features, self.pospe, self.feape)
+        B = pts.shape[0]
+        rough = None
+        if self.view_encoder is not None or \
+                self.roughness_view_encoder is not None:
+            rough = torch.full((B,), 1e-3, device=pts.device)
+        if self.view_encoder is not None:
+            indata += [self.view_encoder(viewdirs, rough).reshape(B, -1),
+                       viewdirs]
         mlp_in = torch.cat(indata, dim=-1)
+        if self.roughness_view_encoder is not None:
+            indata += [self.roughness_view_encoder(viewdirs, rough).reshape(
+                B, -1), viewdirs]
+        rough_in = torch.cat(indata, dim=-1)
         diffuse = torch.sigmoid(self.diffuse_mul * self.diffuse_mlp(mlp_in)
                                 + self.diffuse_bias)
-        r = torch.sigmoid(self.roughness_mlp(mlp_in)
+        r = torch.sigmoid(self.roughness_mlp(rough_in)
                           + self.roughness_bias) / 2
         if draws is not None:
             dev = features.device
@@ -151,6 +219,122 @@ class RandHydraMLPDiffuse(nn.Module):
         roughness_v = float(inv_sigmoid(roughness).mean())
         sr = self.start_roughness
         self.roughness_bias.add_(math.log(sr / (1 - sr)) - roughness_v)
+
+
+class _BiasedHead(nn.Module):
+    """The calibration of ``MLPDiffuse`` and ``HydraMLPDiffuse``, in
+    float32 as nmf_tpu's: diffuse_bias += logit(v) - mean(logit(albedo)),
+    v = (0.5 if conserve_energy else 0.25) / mean_brightness clipped to
+    [1e-4, 1 - 1e-4]; roughness_bias += logit(start_roughness) -
+    mean(logit((r1 + r2) / 4)); albedo and roughness clipped to [1e-6,
+    1 - 1e-6]."""
+
+    def __init__(self, pospe, feape, lr):
+        super().__init__()
+        self.diffuse_bias = nn.Parameter(torch.tensor(-2.0))
+        self.roughness_bias = nn.Parameter(torch.tensor(1.0))
+        self.tint_bias = -1.0
+        self.diffuse_mul = 1.0
+        self.pospe = int(pospe)
+        self.feape = int(feape)
+        self.lr = float(lr)
+
+    def inputs(self, pts, features):
+        return torch.cat(_point_inputs(pts, features, self.pospe,
+                                       self.feape), dim=-1)
+
+    @torch.no_grad()
+    def calibrate(self, mean_brightness, conserve_energy, pts, viewdirs,
+                  features, start_roughness=0.35):
+        diffuse, _, extra = self(pts, viewdirs, features)
+
+        def logit(x, lo=1e-4):
+            x = torch.as_tensor(x, dtype=torch.float32, device=pts.device)
+            return inv_sigmoid(torch.clamp(x, lo, 1 - lo))
+
+        v = (0.5 if conserve_energy else 0.25) / float(mean_brightness)
+        self.diffuse_bias.add_(float(logit(v) - logit(diffuse, 1e-6).mean()))
+        rough = (extra["r1"] + extra["r2"]) / 4
+        self.roughness_bias.add_(float(
+            inv_sigmoid(torch.tensor(start_roughness))
+            - logit(rough, 1e-6).mean()))
+
+
+class MLPDiffuse(_BiasedHead):
+    """One MLP of the point inputs with 10 outputs: albedo (3), tint (3),
+    ambient, r1, r2 and f0, the last an (M, 1) column. The yaml's bias
+    keys are not read (nmf_tpu's ``init_mlp_diffuse``): the biases start
+    at -2 and 1."""
+
+    def __init__(self, in_channels, pospe=12, feape=6, featureC=128,
+                 num_layers=4, lr=1e-4, generator=None, **_):
+        super().__init__(pospe, feape, lr)
+        self.mlp = MLP(_point_width(in_channels, self.pospe, self.feape),
+                       10, num_layers=num_layers, hidden_w=featureC,
+                       generator=generator)
+
+    def forward(self, pts, viewdirs, features, std=0.0, draws=None):
+        out = self.mlp(self.inputs(pts, features))
+        ambient = torch.sigmoid(out[..., 6:7] - 2)
+        r1 = torch.sigmoid(out[..., 7:8] + self.roughness_bias) \
+            * (1 - 1e-3) + 1e-3
+        r2 = torch.sigmoid(out[..., 8:9] + self.roughness_bias) \
+            * (1 - 1e-3) + 1e-3
+        tint = torch.sigmoid(out[..., 3:6] + self.tint_bias)
+        f0 = torch.sigmoid(out[..., 9:10] + 3) * (1 - 0.001) + 0.001
+        diffuse = torch.sigmoid(self.diffuse_mul * out[..., 0:3]
+                                + self.diffuse_bias)
+        return diffuse, tint, {"ambient": ambient, "r1": r1, "r2": r2,
+                               "f0": f0, "tint": tint, "diffuse": diffuse}
+
+
+class HydraMLPDiffuse(_BiasedHead):
+    """Albedo, tint and roughness from three MLPs of the point inputs, no
+    train-time noise; f0 the dielectric 0.04. Biases as ``MLPDiffuse``."""
+
+    def __init__(self, in_channels, pospe=12, feape=6, featureC=128,
+                 num_layers=4, lr=1e-4, generator=None, **_):
+        super().__init__(pospe, feape, lr)
+        width = _point_width(in_channels, self.pospe, self.feape)
+
+        def mlp(out):
+            return MLP(width, out, num_layers=num_layers, hidden_w=featureC,
+                       generator=generator)
+
+        self.diffuse_mlp = mlp(3)
+        self.tint_mlp = mlp(3)
+        self.roughness_mlp = mlp(2)
+
+    def forward(self, pts, viewdirs, features, std=0.0, draws=None):
+        x = self.inputs(pts, features)
+        diffuse = torch.sigmoid(self.diffuse_mul * self.diffuse_mlp(x)
+                                + self.diffuse_bias)
+        r = torch.sigmoid(self.roughness_mlp(x) + self.roughness_bias) / 2
+        tint = torch.sigmoid(self.tint_mlp(x) + self.tint_bias)
+        return diffuse, tint, {"diffuse": diffuse, "r1": r[..., 0:1],
+                               "r2": r[..., 1:2], "tint": tint,
+                               "f0": torch.full_like(diffuse, 0.04)}
+
+
+class PassthroughDiffuse(nn.Module):
+    """Material properties read from the first 8 appearance-feature
+    channels (app_dim >= 8); no parameters, nothing to calibrate."""
+
+    lr = 0.0
+
+    def forward(self, pts, viewdirs, features, std=0.0, draws=None):
+        diffuse = torch.sigmoid(features[..., 0:3] - 3)
+        roughness = torch.clamp(torch.sigmoid(features[..., 3:4] + 2),
+                                min=1e-2) / 2
+        ambient = torch.sigmoid(features[..., 4:5] - 2)
+        tint = torch.sigmoid(features[..., 5:8])
+        return diffuse, tint, {
+            "ambient": ambient, "diffuse": diffuse, "roughness": roughness,
+            "r1": roughness, "r2": roughness,
+            "f0": torch.full_like(diffuse, 0.04)}
+
+    def calibrate(self, *args, **kwargs):
+        pass
 
 
 class MLPNormal(nn.Module):

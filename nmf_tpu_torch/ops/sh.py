@@ -1,6 +1,6 @@
-"""Real spherical harmonics (``nmf_tpu/ops/sh.py``): the plain bases, the
-Lambertian convolution coefficients and the degree-list bases of the
-``ListISH`` encoders."""
+"""Real spherical harmonics (``nmf_tpu/ops/sh.py``): the plain bases and
+their vMF-attenuated form, the Lambertian convolution coefficients and the
+degree-list bases of the ``ListISH`` encoders (degrees 0, 1, 2, 4, 8)."""
 import math
 
 import torch
@@ -72,11 +72,14 @@ def lambertian_coeffs(max_l: int = 16, device=None):
 
 
 def sh_basis(degs, dirs, kappa=None):
-    """SH bases for a list of degrees (0, 1, 2, 4), each attenuated by
-    Al(deg, kappa); the signs and order of nmf_tpu's ``sh_basis``."""
+    """SH bases for a list of degrees (0, 1, 2, 4, 8), each attenuated by
+    Al(deg, kappa); the signs, order and constants of nmf_tpu's
+    ``sh_basis``."""
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
     xx, yy, zz = x * x, y * y, z * z
     x4, y4, z4 = xx * xx, yy * yy, zz * zz
+    x6, y6, z6 = x4 * xx, y4 * yy, z4 * zz
+    x8, y8, z8 = x6 * xx, y6 * yy, z6 * zz
     values = []
     for deg in degs:
         scale = Al(deg, kappa) if kappa is not None else torch.ones_like(x)
@@ -101,11 +104,60 @@ def sh_basis(degs, dirs, kappa=None):
                 scale * (0.473087 * xx - 0.473087 * yy) * (7 * zz - 1),
                 scale * 1.77013 * x * z * (xx - 3 * yy),
                 scale * (0.625836 * x4 - 3.755016 * xx * yy + 0.625836 * y4)]
+        elif deg == 8:
+            # the z^6 / z^8 polynomials of the zonal terms as nmf_tpu writes
+            # them (143 z^6 - 143 z^4 ..., 58.47336495 z^8 ...)
+            z6p = 143 * z6 - 143 * z4 + 33 * zz - 1
+            z7p = 715 * z6 - 1001 * z4 + 385 * zz - 35
+            z4p = 65 * z4 - 26 * zz + 1
+            z5p = 39 * z4 - 26 * zz + 3
+            values += [
+                scale * 5.83141 * x * y * (x6 - 7 * x4 * yy + 7 * xx * y4
+                                           - y6),
+                -scale * 2.91571 * y * z * (-7 * x6 + 35 * x4 * yy
+                                            - 21 * xx * y4 + y6),
+                scale * 1.06467 * x * y * (15 * zz - 1)
+                * (3 * x4 - 10 * xx * yy + 3 * y4),
+                scale * 3.44991 * y * z * (5 * zz - 1)
+                * (5 * x4 - 10 * xx * yy + y4),
+                scale * 1.91367 * x * y * (xx - yy) * z4p,
+                -scale * 1.23527 * y * z * (-3 * xx + yy) * z5p,
+                scale * 0.912305 * x * y * z6p,
+                scale * 0.109041 * y * z * z7p,
+                scale * (58.47336495 * z8 - 109.15028124 * z6
+                         + 62.9713161 * z4 - 11.4493302 * zz + 0.31803695),
+                scale * 0.109041 * x * z * z7p,
+                scale * (0.456152 * xx - 0.456152 * yy) * z6p,
+                scale * 1.23527 * x * z * (xx - 3 * yy) * z5p,
+                scale * (0.478417 * x4 - 2.870502 * xx * yy
+                         + 0.478417 * y4) * z4p,
+                scale * 3.44991 * x * z * (5 * zz - 1)
+                * (x4 - 10 * xx * yy + 5 * y4),
+                scale * (15 * zz - 1) * (0.532333 * x6 - 7.984995 * x4 * yy
+                                         + 7.984995 * xx * y4
+                                         - 0.532333 * y6),
+                scale * 2.91571 * x * z * (x6 - 21 * x4 * yy + 35 * xx * y4
+                                           - 7 * y6),
+                scale * (0.728927 * x8 - 20.409956 * x6 * yy
+                         + 51.02489 * x4 * y4 - 20.409956 * xx * y6
+                         + 0.728927 * y8)]
         else:
             raise NotImplementedError(
-                f"sh_basis degree {deg} is not ported yet (0, 1, 2, 4 are)")
+                f"sh_basis degree {deg}: nmf_tpu has 0, 1, 2, 4 and 8")
     return torch.stack(values, dim=-1)
 
 
 def sh_basis_dim(degs) -> int:
     return sum(2 * d + 1 for d in degs)
+
+
+def eval_sh_bases_scaled(basis_dim: int, dirs, kappa):
+    """``eval_sh_bases`` with band l attenuated by Al(l, kappa); kappa
+    (N,) -> (N, basis_dim)."""
+    base = eval_sh_bases(basis_dim, dirs)
+    scales, l = [], 0
+    while len(scales) < basis_dim:
+        scales += [l] * min(2 * l + 1, basis_dim - len(scales))
+        l += 1
+    ls = torch.tensor(scales, dtype=torch.float32, device=dirs.device)
+    return base * torch.exp(-ls * (ls + 1) / 2.0 / (kappa[..., None] + 1e-8))

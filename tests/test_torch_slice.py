@@ -213,10 +213,11 @@ def test_ported_targets_build(target):
 
 
 def test_unported_targets_raise():
-    # nmf_tpu's Specular BRDF comes with a later slice
+    # nmf_tpu's Microfacet cannot build the Specular BRDF (ROADMAP C.12):
+    # the port raises, naming C.12
     cfg = ttrain.config_lib.compose([
         *FLAGSHIP, "model.arch.model.brdf._target_=modules.brdf.Specular"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="C.12"):
         tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
     if not torch.cuda.is_available():
         cfg = ttrain.config_lib.compose(["model=tensorf"])
@@ -225,31 +226,24 @@ def test_unported_targets_raise():
 
 
 @pytest.mark.parametrize("override", [
-    "model.arch.bg_module.mipnoise=0.1",
-    "model.arch.model.brdf.dotpe=0",
-    "model.arch.model.brdf.activation=sigexp"])
-def test_unported_flagship_knobs_raise(override):
-    # the flagship's shipped config sets none of these; they come with a
-    # later slice, and the error says so
-    cfg = ttrain.config_lib.compose([*FLAGSHIP, override])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbuild(cfg["model"]["arch"], AABB, NEAR_FAR, device="cpu")
-
-
-@pytest.mark.parametrize("override", [
     ["model.arch.hdr=true",
      "model.arch.tonemap._target_=modules.tonemap.HDRTonemap"],
     ["model.arch.mlp_dtype=bf16"],
     ["model.arch.sampler.superstep=2"],
-    ["model.arch.sampler.fine_alpha_test=false"]],
-    ids=["hdr", "mlp_dtype_bf16", "superstep2", "no_fine_alpha_test"])
+    ["model.arch.sampler.fine_alpha_test=false"],
+    ["model.arch.bg_module.mipnoise=0.1"],
+    ["model.arch.model.brdf.dotpe=0"],
+    ["model.arch.model.brdf.activation=sigexp"]],
+    ids=["hdr", "mlp_dtype_bf16", "superstep2", "no_fine_alpha_test",
+         "mipnoise", "dotpe0", "sigexp"])
 def test_ported_flagship_knobs_build_and_match(override):
-    """Knobs that raised before this slice build, with nmf_tpu's state-dict
-    keys and shapes, and give nmf_tpu's eval render of 64 rays (rgb to
-    1e-5 of its largest, bf16 operands to 1e-4: an ulp of an MLP input
-    can flip a bf16 rounding; acc to 1e-6). The envmap's mip bias is at
-    12, as in tests/test_torch_flagship.py, so its lookups agree to
-    1e-6."""
+    """Knobs that raised before their slice build, with nmf_tpu's
+    state-dict keys and shapes, and give nmf_tpu's eval render of 64 rays
+    (rgb to 1e-5 of its largest, bf16 operands to 1e-4: an ulp of an MLP
+    input can flip a bf16 rounding; acc to 1e-6). The envmap's mip bias is
+    at 12, as in tests/test_torch_flagship.py, so its lookups agree to
+    1e-6. ``mipnoise`` is read on no path (ROADMAP C.12): the port's render
+    with it equals its render without it, bit for bit."""
     from nmf_tpu_torch.ops.draws import Draws as TDraws
     from torch_parity import build_flagship_pair, port_copy, render_draws
     jn, _, cfg = build_flagship_pair(override)
@@ -279,6 +273,14 @@ def test_ported_flagship_knobs_build_and_match(override):
     np.testing.assert_allclose(tims["acc_map"].numpy(),
                                np.asarray(jims["acc_map"]), rtol=0,
                                atol=1e-6)
+    if "mipnoise" in override[0]:
+        tn.bg_module.mipnoise = 0.0
+        with torch.no_grad():
+            plain, _ = ttrain.trainer.render(
+                tn, torch.from_numpy(rays), is_train=False,
+                draws=TDraws(None, render_draws(key, jn, B, False)),
+                bg_cache=tn.bg_module.prepare())
+        assert torch.equal(plain["rgb_map"], tims["rgb_map"])
 
 
 # the tiny tensorf of test_reconstruction_on_cpu_writes_eval_images, one
