@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-1. Device: the card's name and power limit, torch's CUDA version.
+1. Device: the card's name and power limit, torch's CUDA version, and
+   scripts/collect_env.py's report.
 2. Build: compiles the CUDA kernels of nmf_tpu_torch/csrc with nvcc.
 3. Kernels: times an empty kernel's launch from the composite library
    back to back (the launch floor). Holds each kernel against its plain
@@ -55,15 +56,19 @@
    material heads, dotpe 0 / 2, sigexp, the envmap's softplus / clip /
    identity activations and sh_grad), the tiny Ref-NeRF with every
    reflection encoder, and the Specular module alone (at num_layers 0
-   and 1), card against CPU. K3 is also held and
+   and 1), card against CPU; then one fit_field step to a tiny grid and
+   a tiny hash field (the loss, every gradient and Adam moment),
+   density_volume at reso 64, graph_brdfs of the tiny flagship at res
+   16, the optics functions, the LearnableSphericalEncoding with its
+   gradients and LHyperGeom, card against CPU. K3 is also held and
    timed at C = 1 (Russian roulette's retrace counts, N = 1,024 into the
    flagship's 393,216 samples).
    The tiny checks run beside the main paths.
 4-21. The main paths run in three processes at once on the card (lanes,
    LANES: a step is bound by the host's launches, so the lanes fill
    each other's idle time), each lane's paths in turn: sphere (paths 4,
-   18, 11, 20, 17, 15), studio (7, 5, 6, 8, 9, 13, 10) and fields (21,
-   14, 16, 19, 12). Two more processes generate the scenes of paths 5, 10,
+   22, 18, 11, 20, 17, 15), studio (7, 5, 6, 8, 9, 13, 10) and fields
+   (21, 14, 16, 19, 12). Two more processes generate the scenes of paths 5, 10,
    19 and 12 on the host. Each path's kernel counts are its lane's.
    A launch at a size that the kernel checks did not hold is held after
    every lane is done, on the ids it launched with (below).
@@ -222,9 +227,29 @@
    (no path draws its noise, ROADMAP C.12); 450 iterations, the upsample
    at half, no rebuild. It prints the envmap's gradient norm at the first
    step, which must be finite and above 0.
-   Every K1 / K2 / K3 launch of paths 8 to 21 must be at a size held
+22. The distill path, on the tensorf path's final checkpoint (300^3):
+   scripts/reeval.py on the tensorf run's dumped test PNGs (within 0.1 dB
+   of its eval), then scripts/fit_field.py at its CLI defaults (2,000
+   steps of 65,536 points, lr 1e-2) to the dense grid (128^3: K3 at N =
+   524,288, C = 28, R = 2,097,152) and, cut to 1,000 steps, to the hash
+   field (16 x 2^19 x 2: K3 at N = 8,388,608, C = 2, R = 8,388,608), one
+   launch a step each (density and appearance share one gather), both
+   sizes held after the
+   lanes on the ids they launched with and timed L2-cold beside zeros +
+   index_add_; every logged loss finite, the mean |density feature
+   error| on 65,536 held points after the fit at most half of it
+   before, each file reloaded as its field type; render_only of each
+   distilled checkpoint (their test PSNRs printed beside the source's,
+   not held to 17 dB: a distilled field under it is a finding); then
+   scripts/export_mesh.py of all three (the source at reso 256, the
+   distilled fields cut to 192), at the level where one march step of
+   the field absorbs 10% (the default level 5 lies inside the learned
+   shell, ROADMAP C.17), each mesh's outer surface
+   (its outermost vertex in each of 16 x 32 direction bins, 90% of them
+   held) at a median radius within 0.1 of the sphere's 0.8.
+   Every K1 / K2 / K3 launch of paths 8 to 22 must be at a size held
    by the kernel checks or held after the lanes on the ids it launched
-   with; each must clear 17 dB.
+   with; paths 8 to 21 must clear 17 dB.
 
 Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
@@ -3365,6 +3390,327 @@ def dual_path(config):
     return run
 
 
+# The distill path: scripts/fit_field.py at its CLI defaults (2,000 steps
+# of 65,536 points, lr 1e-2) from the tensorf path's final checkpoint
+# (300^3 after its upsample) to the dense grid (128^3, a 2,097,152-row
+# table of 28 f32 columns) and to the hash field (16 levels of 2^19 x 2),
+# each distilled checkpoint rendered by render_only on the sphere's test
+# views, then scripts/export_mesh.py of the source and of both distilled
+# checkpoints. The fit's backward launches K3 at sizes no other
+# path launches: the grid's 8 corner rows a point, and the hash tables' 8
+# corners of 16 levels a point (C = 2, the B.3 shape).
+DISTILL_TARGETS = ("grid", "hashgrid")
+DISTILL_STEPS, DISTILL_BATCH = 2000, 65536  # fit_field's defaults
+# cut for the script's time (uncut, the whole script took 952.7 s on an
+# H100, past its 950 s budget; PERF.md section 4): the hash fit's steps,
+# then the distilled meshes' lattice (the source's stays at MESH_RESO)
+FIT_STEPS = {"grid": DISTILL_STEPS, "hashgrid": 1000}
+DISTILLED_MESH_RESO = 192
+DISTILL_K3 = {"grid": (8 * DISTILL_BATCH, 28, 128 ** 3),
+              "hashgrid": (8 * 16 * DISTILL_BATCH, 2, 16 * 2 ** 19)}
+DISTILL_FIELDS = {"grid": "GridRF", "hashgrid": "HashGridRF"}
+DISTILL_HELD = 65536     # held points of the density error
+DISTILL_GAIN = 0.5       # nmf_tpu's bar (tests/test_extras.py:579-603)
+MESH_RESO = 256
+SPHERE_RADIUS, MESH_DB = 0.8, 0.1  # data/synthetic.py's sphere; the bar
+# The marching level: the density at which one march step of the field
+# absorbs MESH_ABSORB of the light, -ln(1 - MESH_ABSORB) / (distance_scale
+# x the sampler's step), 0.84 / 0.34 / 1.45 for the source (300^3), the
+# grid (128^3) and the hash field (grid_size 512). export_mesh's default, 5
+# (nmf_tpu's), lies inside the learned sphere: its surface is a soft
+# shell whose density stays under 5 (ROADMAP C.17); the level-5 mesh of
+# the source has its outer surface at a median radius of 0.66 with 9% of
+# the directions empty, and at level 1 the grid's lies at 0.68 (PERF.md
+# section 6).
+MESH_ABSORB = 0.1
+# the mesh's outer surface: its outermost vertex in each of these
+# (polar, azimuth) direction bins. The density inside the learned sphere
+# is never seen by a ray and crosses the marching level too, so a mesh
+# holds an inner shell, and the median radius of all its vertices reads
+# that shell as much as the surface: the bar holds the outer surface.
+MESH_BINS, MESH_COVER = (16, 32), 0.9
+TENSORF_RUN = LOG_DIR / "synthetic_sphere_tensorf"
+REEVAL_DB = 0.1          # the PNGs are 8-bit
+
+
+def outer_radius(verts):
+    """(the median over MESH_BINS direction bins of the outermost vertex's
+    radius, the share of bins holding a vertex, every vertex's median
+    radius) of a mesh's vertices (V, 3) about the origin."""
+    import numpy as np
+
+    if not len(verts):
+        return float("nan"), 0.0, float("nan")
+    r = np.linalg.norm(verts, axis=-1)
+    polar = np.arccos(np.clip(verts[:, 2] / np.maximum(r, 1e-12), -1, 1))
+    azimuth = np.arctan2(verts[:, 1], verts[:, 0]) + np.pi
+    nb, na = MESH_BINS
+    b = (np.minimum((polar / np.pi * nb).astype(int), nb - 1) * na
+         + np.minimum((azimuth / (2 * np.pi) * na).astype(int), na - 1))
+    outer = np.full(nb * na, -np.inf)
+    np.maximum.at(outer, b, r)
+    held = np.isfinite(outer)
+    return (float(np.median(outer[held])), float(held.mean()),
+            float(np.median(r)))
+
+
+def distill_path(torch, config, tensorf):
+    """The distill path's run for ``drive_main_path`` (its results: the
+    last fit loss, the lower distilled test PSNR, rays/s as fitted points
+    a second; its "train seconds": the two fits'). ``tensorf``: the
+    tensorf path's results: reeval's bar and the source's test
+    metrics."""
+    import numpy as np
+
+    from nmf_tpu_torch import ckpt, train
+    from nmf_tpu_torch.builders import build_field
+    from nmf_tpu_torch.scripts import export_mesh, fit_field, reeval
+
+    def held_error(rf, xyz, src_sig):
+        with torch.no_grad():
+            return float((rf.compute_densityfeature(xyz, activate=False)
+                          - src_sig).abs().mean())
+
+    def render(name, path, log):
+        return train.dispatch(config.compose(
+            ["model=tensorf", "dataset=synthetic_sphere", "device=cuda",
+             f"basedir={LOG_DIR}", f"expname=distill_{name}",
+             "render_only=True", f"ckpt={path}"]), log=log)[1]
+
+    def run(log):
+        src_path = TENSORF_RUN / f"{TENSORF_RUN.name}.th"
+        out_dir = LOG_DIR / "distill"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # reeval of the tensorf run's dumped test PNGs against its eval
+        re = reeval.reeval_run(TENSORF_RUN, str(DATA_DIR), log=log)
+        gap = re["psnr"] - tensorf["psnr"]
+        print(f"distill: reeval of the tensorf run's PNGs {re['psnr']:.4f} "
+              f"dB against its eval's {tensorf['psnr']:.4f} ({gap:+.4f}, "
+              f"bar {REEVAL_DB}), SSIM {re['ssim']:.4f}")
+        if not abs(gap) <= REEVAL_DB:
+            fail(f"distill: reeval's PSNR is {gap:+.4f} dB off the tensorf "
+                 f"path's eval (bar {REEVAL_DB} dB)")
+        src, src_cfg, _ = ckpt.load(src_path)
+        dev = src.rf.aabb.device
+        gen = torch.Generator(device=dev).manual_seed(7)
+        lo, hi = src.rf.aabb[0], src.rf.aabb[1]
+        xyz = lo + (hi - lo) * torch.rand((DISTILL_HELD, 3), generator=gen,
+                                          device=dev)
+        with torch.no_grad():
+            src_sig = src.rf.compute_densityfeature(xyz, activate=False)
+        # the fits first, then every render: the path's launches a fit
+        # step are its counts at the first evaluation
+        fits, seconds = {}, 0.0
+        for target in DISTILL_TARGETS:
+            path = out_dir / f"{target}.th"
+            cfg = fit_field.distilled_config(src_cfg, target, 128)
+            before = held_error(build_field(
+                torch.Generator().manual_seed(0), cfg["model"]["arch"]["rf"],
+                src.rf.aabb.cpu().numpy()).to(dev), xyz, src_sig)
+            fit = fit_field.main(["--ckpt", str(src_path), "--target", target,
+                                  "--steps", str(FIT_STEPS[target]),
+                                  "--out", str(path)])
+            losses = fit["losses"]
+            seconds += fit["seconds"]
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"distill {target}: a logged fit loss is not finite: "
+                     f"{losses}")
+            nmf = ckpt.load(path)[0]
+            kind = type(nmf.rf).__name__
+            if kind != DISTILL_FIELDS[target]:
+                fail(f"distill {target}: the file reloads as {kind}, not "
+                     f"{DISTILL_FIELDS[target]}")
+            after = held_error(nmf.rf, xyz, src_sig)
+            drift = float((nmf.rf.aabb - src.rf.aabb).abs().max())
+            del nmf
+            step_ms = 1e3 * fit["seconds"] / FIT_STEPS[target]
+            print(f"distill {target}: {FIT_STEPS[target]} steps in "
+                  f"{fit['seconds']:.1f} s ({step_ms:.2f} ms a step, in its "
+                  f"lane); loss first "
+                  f"{losses[0]:.6f}, last {losses[-1]:.6f}; mean |density "
+                  f"feature error| on {DISTILL_HELD} held points before "
+                  f"{before:.5f}, after {after:.5f} (bar x{DISTILL_GAIN}); "
+                  f"reloads as {kind}; its box moved by up to {drift:.4f} "
+                  f"(ROADMAP C.16)")
+            if not after <= DISTILL_GAIN * before:
+                fail(f"distill {target}: the density error after the fit "
+                     f"{after:.5f} is not within {DISTILL_GAIN} x the "
+                     f"error before {before:.5f}")
+            fits[target] = dict(loss=losses[-1], path=path)
+        del src
+        # the source's test metrics are the tensorf path's final eval (the
+        # same views, seed and checkpoint)
+        tests = {name: render(name, fits[name]["path"], log)
+                 for name in DISTILL_TARGETS}
+        tests["source"] = tensorf
+        for target in DISTILL_TARGETS:
+            print(f"distill {target}: test PSNR {tests[target]['psnr']:.2f} "
+                  f"dB, SSIM {tests[target]['ssim']:.4f} against the "
+                  f"source's {tests['source']['psnr']:.2f} dB, SSIM "
+                  f"{tests['source']['ssim']:.4f}")
+        for name in ("source", *DISTILL_TARGETS):
+            ck = src_path if name == "source" else fits[name]["path"]
+            nmf = ckpt.load(ck)[0]
+            level = -math.log(1 - MESH_ABSORB) / (
+                nmf.rf.distance_scale * nmf.sampler.stepsize)
+            del nmf
+            reso = MESH_RESO if name == "source" else DISTILLED_MESH_RESO
+            mesh = export_mesh.main([str(ck), str(out_dir / f"{name}.ply"),
+                                     "--reso", str(reso),
+                                     "--level", f"{level:.6g}"])
+            verts, faces = mesh["verts"], mesh["faces"]
+            outer, cover, radius = outer_radius(verts)
+            print(f"distill mesh of the {name} field at reso {reso}, "
+                  f"level {level:.4f}: "
+                  f"{len(verts)} vertices, {len(faces)} faces; the outer "
+                  f"surface's median radius {outer:.4f} over {cover:.3f} of "
+                  f"the direction bins (sphere {SPHERE_RADIUS}, bar "
+                  f"{MESH_DB}, cover {MESH_COVER}); every vertex's median "
+                  f"radius {radius:.4f}; density query "
+                  f"{mesh['density']:.2f} s, marching {mesh['marching']:.2f}"
+                  " s")
+            if not (len(faces) and abs(outer - SPHERE_RADIUS) <= MESH_DB
+                    and cover >= MESH_COVER):
+                fail(f"distill: the {name} mesh's outer surface lies at a "
+                     f"median radius {outer} over {cover} of the direction "
+                     f"bins (bar {SPHERE_RADIUS} +- {MESH_DB}, cover "
+                     f"{MESH_COVER})")
+        worst = min(DISTILL_TARGETS, key=lambda t: tests[t]["psnr"])
+        out = dict(tests[worst], loss=fits[worst]["loss"],
+                   source_psnr=tests["source"]["psnr"],
+                   rays_per_sec=sum(FIT_STEPS.values()) * DISTILL_BATCH
+                   / seconds)
+        note = ", distilled " + ", ".join(
+            f"{t} {tests[t]['psnr']:.2f} dB" for t in DISTILL_TARGETS)
+        return out, seconds, note + (f" against the source's "
+                                     f"{tests['source']['psnr']:.2f} dB")
+
+    return run
+
+
+def check_small_distill(torch, dev):
+    """The A.4 slice's modules on the card against the CPU: one fit_field
+    step from a tiny TensorVMSplit (16^3) to a 24^3 grid and to a 4-level
+    hash field of 2^10 rows (the loss at 1e-5; every gradient and Adam
+    moment at 1e-4 of its tensor's largest, the box's at 1e-3: its
+    gradient sums terms of every point that cancel, which the card adds
+    in another order), density_volume at reso 64, graph_brdfs of the tiny
+    flagship at res 16, the optics functions, the LearnableSphericalEncoding
+    with its gradients, and LHyperGeom (1e-5 of the largest). Prints and
+    returns {check: max_abs_err}."""
+    import numpy as np
+
+    from nmf_tpu_torch.fields.grid import init_grid_rf
+    from nmf_tpu_torch.fields.hashgrid import init_hashgrid_rf
+    from nmf_tpu_torch.fields.tensorf import init_tensorvm_split
+    from nmf_tpu_torch.modules.ish import LHyperGeom
+    from nmf_tpu_torch.modules.render_modules import (
+        init_learnable_spherical_encoding)
+    from nmf_tpu_torch.ops import optics
+    from nmf_tpu_torch.ops.draws import Draws
+    from nmf_tpu_torch.scripts import export_mesh, fit_field
+    from nmf_tpu_torch.scripts.graph_brdfs import graph_brdfs
+
+    cpu = torch.device("cpu")
+    aabb = np.array([[-1.5] * 3, [1.5] * 3], np.float32)
+    errs = {}
+    for target, init, kw in (
+            ("grid", init_grid_rf, dict(grid_size=(24, 24, 24))),
+            ("hashgrid", init_hashgrid_rf,
+             dict(n_levels=4, log2_hashmap_size=10))):
+        runs = []
+        for d in (dev, cpu):
+            src = init_tensorvm_split(
+                torch.Generator().manual_seed(0), aabb, grid_size=[16] * 3,
+                N_voxel_init=16 ** 3, N_voxel_final=16 ** 3,
+                upsamp_list=()).to(d)
+            tgt = init(torch.Generator().manual_seed(1), aabb, **kw).to(d)
+            xyz = fit_field.sample_points(
+                Draws(torch.Generator().manual_seed(2)), 0, src.aabb, 4096)
+            tensors = fit_field.fit_tensors(tgt)
+            for t in tensors:
+                t.requires_grad_(True)
+            loss = fit_field.fit_loss(src, tgt, xyz)
+            loss.backward()
+            grads = [t.grad.clone() for t in tensors]
+            opt = fit_field.FitAdam(tensors, 1e-2)
+            opt.step()
+            runs.append((loss.detach(), grads, opt.m, opt.v))
+        (l0, g0, m0, v0), (l1, g1, m1, v1) = runs
+        err = max_err(torch, [(l0.cpu(), l1)], 1e-5, 0.0,
+                      f"small fit {target} loss")
+        for i, (a, b) in enumerate(zip([*g0, *m0, *v0], [*g1, *m1, *v1])):
+            box = i % len(g0) == len(g0) - 1
+            err = max(err, max_err(
+                torch, [(a.cpu(), b)], 0.0,
+                (1e-3 if box else 1e-4) * float(b.abs().max()) + 1e-20,
+                f"small fit {target} gradient / moment {i}"))
+        errs[f"fit_field step, {target}"] = err
+
+    src = [init_tensorvm_split(torch.Generator().manual_seed(0), aabb,
+                               grid_size=[16] * 3, N_voxel_init=16 ** 3,
+                               N_voxel_final=16 ** 3, upsamp_list=()).to(d)
+           for d in (dev, cpu)]
+    vols = [export_mesh.density_volume(types.SimpleNamespace(rf=rf), 64)[0]
+            for rf in src]
+    errs["density_volume 64"] = max_err(
+        torch, [(torch.from_numpy(vols[0]), torch.from_numpy(vols[1]))],
+        0.0, 1e-5 * float(np.abs(vols[1]).max()), "small density_volume")
+
+    _, nmfs = small_models(torch, dev, SMALL_FLAGSHIP)
+    rng = np.random.default_rng(4)
+    xyz = np.concatenate([rng.uniform(-1, 1, (2, 3)), np.full((2, 1), 0.01)],
+                         -1).astype(np.float32)
+    v = rng.normal(size=(3, 3))
+    v = (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+    feats = rng.normal(size=(2, nmfs[0].rf.app_dim)).astype(np.float32)
+    ims = [graph_brdfs(n.model, *(torch.from_numpy(a).to(n.rf.aabb.device)
+                                  for a in (xyz, v, feats)), res=16)
+           for n in nmfs]
+    errs["graph_brdfs res 16"] = max_err(
+        torch, [(ims[0].cpu(), ims[1])], 0.0,
+        1e-5 * float(ims[1].abs().max()), "small graph_brdfs")
+
+    n = torch.from_numpy(rng.normal(size=(257, 3)).astype(np.float32))
+    n = n / n.norm(dim=-1, keepdim=True)
+    l_ = torch.from_numpy(rng.normal(size=(257, 3)).astype(np.float32))
+    l_ = l_ / l_.norm(dim=-1, keepdim=True)
+    p = torch.from_numpy(rng.uniform(0, 1, 257).astype(np.float32))
+    outs = []
+    for d in (dev, cpu):
+        o = optics.snells_law(1.5, n.to(d), l_.to(d))
+        outs.append([o, optics.fresnel_law(1.0, 1.5, n.to(d), l_.to(d), o),
+                     optics.refract_reflect(1.0, 1.33, n.to(d), l_.to(d),
+                                            p.to(d))])
+    errs["optics"] = max_err(torch, [(a.cpu(), b) for a, b in zip(*outs)],
+                             1e-5, 1e-6, "small optics")
+
+    vec = torch.from_numpy(v)
+    sig = torch.from_numpy(rng.uniform(0.3, 0.5, (3, 1)).astype(np.float32))
+    outs = []
+    for d in (dev, cpu):
+        enc = init_learnable_spherical_encoding(
+            5, 100, generator=torch.Generator().manual_seed(3)).to(d)
+        x = vec.to(d).requires_grad_(True)
+        out = enc(x, sig.to(d))
+        out.square().sum().backward()
+        outs.append([out.detach(), enc.weights.grad, x.grad])
+    errs["LearnableSphericalEncoding"] = max(
+        max_err(torch, [(a.cpu(), b)], 0.0,
+                1e-5 * float(b.abs().max()) + 1e-20,
+                f"small LearnableSphericalEncoding output {i}")
+        for i, (a, b) in enumerate(zip(*outs)))
+    x = torch.linspace(-0.9, 0.9, 41)
+    series = LHyperGeom((0.5,), (1.5,), 20)
+    b = series(x)
+    errs["LHyperGeom"] = max_err(torch, [(series(x.to(dev)).cpu(), b)], 0.0,
+                                 1e-5 * float(b.abs().max()),
+                                 "small LHyperGeom")
+    for what, err in errs.items():
+        print(f"small {what}, card vs CPU: max_abs_err {err:.3e}")
+    return errs
+
+
 # ---- the lanes: the main paths run in the LANES' processes at once
 # on the one card, each lane's paths in turn. A step of these paths is
 # bound by the host's launches (PERF.md section 5: the card is busy
@@ -3384,7 +3730,7 @@ PATH_ORDER = ("tensorf", "microfacet_tensorf2", "studio", "blender",
               "lego_size", "relight", "compose", "dual_scene", "hdr",
               "budgets", "extras", "occgrid", "occgrid_crop", "llff",
               "refnerf_studio", "refnerf_tcnn", "dualref", "grid",
-              "tensorf_pe", "heads")
+              "tensorf_pe", "heads", "distill")
 
 
 def host_entry(entry):
@@ -3462,11 +3808,13 @@ class Lane:
 
 def lane_sphere(lane, config):
     """tensorf and the flagship (MAIN_PATHS) with the flagship's K3 ids of
-    REPLAY_STEPS recorded, the logged rays and the orbit, then the extras,
-    occgrid, occgrid_crop, budgets, tensorf_pe and dualref paths."""
+    REPLAY_STEPS recorded, the logged rays and the orbit, then the distill
+    path on tensorf's checkpoint, the extras, occgrid, occgrid_crop,
+    budgets, tensorf_pe and dualref paths."""
     from nmf_tpu_torch.ops.kernels import composite as C
     from nmf_tpu_torch.train import reconstruction
 
+    results = {}
     for label, overrides in MAIN_PATHS:
         cfg = config.compose([*overrides, "dataset=synthetic_sphere",
                               "device=cuda", f"basedir={LOG_DIR}",
@@ -3478,13 +3826,20 @@ def lane_sphere(lane, config):
             return res, res["train_seconds"], ""
 
         flagship = label == "microfacet_tensorf2"
-        lane.drive(label, run, int(cfg["model"]["params"]["n_iters"]),
-                   steps=REPLAY_STEPS if flagship else (), new_k3=False)
+        results[label] = lane.drive(
+            label, run, int(cfg["model"]["params"]["n_iters"]),
+            steps=REPLAY_STEPS if flagship else (), new_k3=False)
         if flagship and not lane.report[-1]["recorded"]:
             fail(f"no K3 launch was recorded at flagship steps "
                  f"{REPLAY_STEPS}")
     check_logged_rays()
     check_orbit()
+    # the fits launch K3 (their backward), the renders K1; a distilled
+    # PSNR under the bar is a finding, not a failure (ROADMAP C)
+    lane.drive("distill", distill_path(lane.torch, config,
+                                       results["tensorf"]),
+               sum(FIT_STEPS.values()), psnr_bar=None,
+               runs=("binsum_rows", "composite_fwd"))
     trained = {}
     lane.drive("extras", extras_path(config), EXTRAS_ITERS)
     lane.drive("occgrid", occgrid_path(config, trained), OCCGRID_ITERS)
@@ -3640,6 +3995,10 @@ def main():
         timeout=60).stdout.splitlines() if "release" in ln]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {nvcc[0] if nvcc else 'release not read'}")
+    from nmf_tpu_torch.scripts import collect_env
+
+    for key, value in collect_env.collect().items():
+        print(f"collect_env {key}: {value}")
 
     t0 = time.time()
     logs = build.build_all(ptxas_verbose=True)
@@ -3678,6 +4037,7 @@ def main():
     check_small_extras(torch, dev)
     check_small_budgets(torch, dev)
     check_small_heads(torch, dev)
+    check_small_distill(torch, dev)
     check_multirun(multirun, t_multirun)
     print(f"chip_smoke: tiny checks done at {time.time() - t_start:.1f} s")
     reports = finish_lanes(lanes)
@@ -3737,6 +4097,15 @@ def main():
           "train step")
     if not sh_k3:
         fail("heads: K3 never scattered the SH projection's gradient")
+    for target, (N, C, R) in DISTILL_K3.items():
+        fit_k3 = {size: n for size, n in by_size["distill"][
+            "binsum_rows"].items() if size[:3] == (N, C, R)}
+        print(f"distill: K3 launches on the {target} fit's table (N, C, R, "
+              f"dtype code): {fit_k3}, "
+              f"{sum(fit_k3.values()) / FIT_STEPS[target]} a fit step")
+        if not fit_k3:
+            fail(f"distill: K3 never scattered into the {target} fit's "
+                 "table")
     retrace = by_size["dualref"]["composite_fwd"].get((1024, 96), 0)
     print(f"dualref: K1 launches at the retrace shape 1024 x 96: {retrace}")
     if not retrace:

@@ -14,8 +14,12 @@ the MLPNormal / AppDimNormal normal modules, the IntegralEquirect envmap
 with its activations, ``mipnoise`` and ``sh_grad``, the SRGB / HDR /
 Linear tonemaps, bf16 MLP operands (``mlp_dtype``) and the renderer's
 sample budgets. The targets nmf_tpu itself cannot run (a Specular BRDF in
-a Microfacet, an SHBasis encoder) raise naming ROADMAP C.12; every other
-unported target raises ``NotImplementedError`` naming A.4.
+a Microfacet, an SHBasis encoder) raise naming ROADMAP C.12. Every other
+target does what nmf_tpu's builders do with it: an unknown field, model,
+envmap, normal module, visibility module, bright sampler, BRDF sampler,
+material head or encoder raises ``ValueError`` "unknown ... target"; any
+other sampler target builds the AlphaGridSampler, and any other BRDF
+target the MLPBRDF.
 """
 import math
 
@@ -42,10 +46,6 @@ from .modules.visibility import (CubeBrightSampler, ERBrightSampler,
 from .render import NMF
 from .samplers.alphagrid import AlphaGridSampler
 from .samplers.occgrid import OccGridSampler
-
-_LATER = ("is not ported yet: it comes with a later slice of nmf_tpu_torch "
-          "(ROADMAP A.4)")
-
 
 def _target(cfg):
     return (cfg or {}).get("_target_", "")
@@ -89,7 +89,7 @@ def build_field(generator, cfg, aabb, grid_size=None):
             kw["grid_size"] = grid_size
         return init_grid_rf(generator, aabb, **kw)
     if not (t.endswith("TensorVMSplit") or not t):
-        raise NotImplementedError(f"field {t!r} {_LATER}")
+        raise ValueError(f"unknown field target {t}")
     kw = {k: v for k, v in kw.items() if k in TENSORF_KEYS}
     if grid_size is not None:
         kw["grid_size"] = grid_size
@@ -124,8 +124,7 @@ def build_sampler(cfg, aabb, near_far):
     kw = _clean(cfg)
     if any(t.endswith(n) for n in OCCGRID_TARGETS):
         return build_occgrid(kw, aabb, near_far)
-    if t and not t.endswith("AlphaGridSampler"):
-        raise NotImplementedError(f"sampler {t!r} {_LATER}")
+    # as in nmf_tpu, every other target builds the AlphaGridSampler
     allowed = {"enable_alpha_mask", "update_list", "multiplier",
                "alphaMask_thres", "superstep", "fine_alpha_test"}
     kw = {k: v for k, v in kw.items() if k in allowed}
@@ -211,7 +210,7 @@ def build_brdf_sampler(cfg):
                       ("MultiSampler", MultiSampler)):
         if t.endswith(name):
             return cls()
-    raise NotImplementedError(f"brdf sampler {t!r} {_LATER}")
+    raise ValueError(f"unknown brdf sampler {t}")
 
 
 def build_visibility(generator, cfg, app_dim):
@@ -222,7 +221,7 @@ def build_visibility(generator, cfg, app_dim):
     t = _target(cfg)
     if not (t.endswith("VisibilityMLP") or t.endswith("NaiveVisCache")
             or not t):
-        raise NotImplementedError(f"visibility module {t!r} {_LATER}")
+        raise ValueError(f"unknown visibility module {t}")
     return init_visibility_mlp(app_dim, generator=generator, **{
         k: v for k, v in _clean(cfg).items()
         if k in ("feape", "featureC", "num_layers", "lr")})
@@ -242,7 +241,7 @@ def build_bright_sampler(cfg):
         return CubeBrightSampler(n_spots=kw.get("n_spots", 16),
                                  scale=kw.get("scale", 1),
                                  update_freq=kw.get("update_freq", 1000))
-    raise NotImplementedError(f"bright sampler {t!r} {_LATER}")
+    raise ValueError(f"unknown bright sampler {t}")
 
 
 def build_microfacet(generator, kw, app_dim):
@@ -259,8 +258,7 @@ def build_microfacet(generator, kw, app_dim):
             "BRDF (its init sets init_val, a field Specular lacks: "
             "TypeError); modules.brdf.Specular is reached only directly "
             "(ROADMAP C.12)")
-    if bt and not bt.endswith("MLPBRDF"):
-        raise NotImplementedError(f"brdf {bt!r} {_LATER}")
+    # as in nmf_tpu, every other BRDF target builds the MLPBRDF
     brdf_kw = _clean(brdf_cfg)
     brdf_kw["h_encoder"] = build_encoder(brdf_kw.pop("h_encoder", None))
     brdf_kw["d_encoder"] = build_encoder(brdf_kw.pop("d_encoder", None))
@@ -304,7 +302,7 @@ def build_model(generator, cfg, app_dim):
         return DualModel(m1, m2, switch_iter=int(
             kw.get("switch_iter", kw.get("warmup_iters", 0))))
     if not (t.endswith("TensoRF") or not t):
-        raise NotImplementedError(f"model {t!r} {_LATER}")
+        raise ValueError(f"unknown model target {t}")
     dm_cfg = kw.get("diffuse_module") or {}
     dm_kw = _clean(dm_cfg)
     if _target(dm_cfg).endswith("MLPRender_PE"):
@@ -320,7 +318,7 @@ def build_normal_module(generator, cfg, app_dim):
         return init_mlp_normal(app_dim, generator=generator, **_clean(cfg))
     if t.endswith("AppDimNormal"):
         return AppDimNormal()
-    raise NotImplementedError(f"normal module {t!r} {_LATER}")
+    raise ValueError(f"unknown normal module {t}")
 
 
 def build_bg(cfg):
@@ -328,7 +326,7 @@ def build_bg(cfg):
         return None
     t = _target(cfg)
     if not t.endswith("IntegralEquirect"):
-        raise NotImplementedError(f"bg module {t!r} {_LATER}")
+        raise ValueError(f"unknown bg target {t}")
     return init_integral_equirect(**_clean(cfg))
 
 

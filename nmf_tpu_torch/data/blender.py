@@ -166,18 +166,11 @@ def load_own_data(datadir, split="train", downsample=1.0, white_bg=True):
     }
 
 
-# file loaders of nmf_tpu that the port does not have yet, and why
-_NOT_PORTED = {
-    "nsvf": "the NSVF loader has no shipped config yet (ROADMAP A.4)",
-    "tankstemple": "the Tanks and Temples loader has no shipped config yet "
-                   "(ROADMAP A.4)",
-}
-
-
 def load_dataset(cfg_dataset, datadir=None, split="train", n_vis=-1):
     """Dispatch on ``dataset_name``: the file scenes ``blender``,
-    ``own_data`` and ``llff`` (``data/llff.py``) under
-    ``datadir/scenedir``, and the procedural scenes ``synthetic_sphere`` /
+    ``own_data``, ``llff`` (``data/llff.py``), ``nsvf`` and
+    ``tankstemple`` (``data/nsvf.py``) under ``datadir/scenedir``, and
+    the procedural scenes ``synthetic_sphere`` /
     ``synthetic_shiny`` / ``synthetic_cluster`` / ``synthetic_studio``,
     which carry all_norms, all_tints and gt_bg_im.
     The yaml's ``near_far`` overrides the scene's."""
@@ -195,6 +188,20 @@ def load_dataset(cfg_dataset, datadir=None, split="train", n_vis=-1):
                        split=split,
                        downsample=cfg_dataset.get("downsample_train", 4.0),
                        ndc_ray=cfg_dataset.get("ndc_ray", True))
+    elif name == "nsvf":
+        from .nsvf import load_nsvf
+
+        ds = load_nsvf(os.path.join(datadir, cfg_dataset["scenedir"]),
+                       split=split,
+                       downsample=cfg_dataset.get("downsample_train", 1.0),
+                       white_bg=cfg_dataset.get("white_bg", True))
+    elif name == "tankstemple":
+        from .nsvf import load_tankstemple
+
+        ds = load_tankstemple(
+            os.path.join(datadir, cfg_dataset["scenedir"]), split=split,
+            downsample=cfg_dataset.get("downsample_train", 1.0),
+            white_bg=cfg_dataset.get("white_bg", True))
     elif name == "own_data":
         ds = load_own_data(os.path.join(datadir, cfg_dataset["scenedir"]),
                            split=split,
@@ -222,9 +229,6 @@ def load_dataset(cfg_dataset, datadir=None, split="train", n_vis=-1):
             interreflect=cfg_dataset.get("interreflect", True),
             n_gi_samples=cfg_dataset.get("n_gi_samples", 64),
             scene=name.split("_", 1)[1])
-    elif name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet: {_NOT_PORTED[name]}")
     else:
         raise ValueError(f"unknown dataset {name}")
     if cfg_dataset.get("near_far"):

@@ -10,10 +10,12 @@ panoramas, HDR frames and envmap dumps need:
   the EXR byte-reorder / delta predictor (ImfZip.cpp semantics);
 - writes FLOAT (or HALF) channels, ZIPS by default.
 
-Any other compression (RLE, PIZ, PXR24, B44, DWA) raises ``ValueError``
-naming it: nmf_tpu decodes those through its native OpenEXR bridge
-(``nmf_tpu/native/exrio.cpp``), which the port does not have yet (ROADMAP
-A.4). Tiled, multi-part and deep files raise too.
+Any other compression (RLE, PIZ, PXR24, B44, DWA), and a tiled,
+multi-part or deep file, goes to the native OpenEXR bridge
+(``exr_native.py``, the port's copy of ``nmf_tpu/native/exrio.cpp``), as
+nmf_tpu's reader routes it; where the bridge cannot be built or cannot
+read the file, ``read_exr`` raises ``ValueError`` naming the compression
+or the layout.
 
 Other formats are read with PIL, to the arrays that nmf_tpu's imageio read
 gives: 8-bit L / RGB / RGBA as uint8 / 255, 16-bit grey as uint16 / 65535.
@@ -164,9 +166,32 @@ def _parse_channels(data: bytes):
     return chans  # already alphabetical in well-formed files
 
 
+class UnsupportedExr(ValueError):
+    """A file the numpy reader does not decode (its compression or
+    layout)."""
+
+
 def read_exr(path):
     """Returns (H, W, C) float32. 3/4-channel files come back RGB(A); other
-    channel sets in the file's (alphabetical) order."""
+    channel sets in the file's (alphabetical) order. A file the numpy
+    reader does not decode comes from the native bridge as (H, W, 4) RGBA,
+    as nmf_tpu's; without the bridge it raises ``UnsupportedExr``."""
+    try:
+        return _read_exr_numpy(path)
+    except UnsupportedExr as e:
+        from .exr_native import exr_read_native, unavailable_reason
+
+        im = exr_read_native(path)
+        if im is None:
+            why = unavailable_reason()
+            raise UnsupportedExr(
+                f"{e}; the native OpenEXR bridge "
+                + (f"is unavailable: {why}" if why else
+                   "could not read it")) from None
+        return im
+
+
+def _read_exr_numpy(path):
     with open(path, "rb") as f:
         magic, version = struct.unpack("<ii", f.read(8))
         if magic != _MAGIC:
@@ -174,16 +199,16 @@ def read_exr(path):
         for flag, what in ((_TILED, "tiled"), (_DEEP, "deep"),
                            (_MULTIPART, "multi-part")):
             if version & flag:
-                raise ValueError(f"{path}: {what} EXR files are not "
-                                 "supported (single-part scanline only)")
+                raise UnsupportedExr(f"{path}: {what} EXR files are not "
+                                     "supported by the numpy reader "
+                                     "(single-part scanline only)")
         attrs = _read_attrs(f)
         chans = _parse_channels(attrs["channels"][1])
         comp = attrs["compression"][1][0]
         if comp not in _LINES_PER_CHUNK:
-            raise ValueError(
+            raise UnsupportedExr(
                 f"{path}: {_COMP_NAMES.get(comp, comp)} compression is not "
-                "supported (only NONE, ZIPS and ZIP; the others need the "
-                "native OpenEXR bridge, ROADMAP A.4)")
+                "supported by the numpy reader (only NONE, ZIPS and ZIP)")
         xm, ym, xM, yM = struct.unpack("<iiii", attrs["dataWindow"][1])
         W, H = xM - xm + 1, yM - ym + 1
         lpc = _LINES_PER_CHUNK[comp]

@@ -197,6 +197,14 @@ class GridRF(nn.Module):
     def compute_appfeature(self, xyz):
         return self._gather(xyz)[0][:, 1:1 + self.app_dim]
 
+    def raw_features(self, xyz):
+        """(the raw density feature (N,), the appearance features) from one
+        gather of the 8 corner rows: ``compute_densityfeature(xyz,
+        activate=False)`` and ``compute_appfeature(xyz)`` with one K3
+        launch in their backward."""
+        feats = self._gather(xyz)[0]
+        return feats[:, 0], feats[:, 1:1 + self.app_dim]
+
     def compute_all(self, xyz, with_normals=False):
         """(density, app_features, normals or None) from one gather of the
         8 corner rows."""

@@ -107,7 +107,8 @@ class HashGridRF(nn.Module):
         self.encoding = encoding
         self.density_mlp = density_mlp
         self.app_mlp = app_mlp
-        self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32))
+        # a copy: the fit moves the box in place (scripts/fit_field.py)
+        self.register_buffer("aabb", torch.tensor(np.asarray(aabb, np.float32)))
         self.app_dim = int(app_dim)
         self.activation = activation
         self.density_shift = float(density_shift)
@@ -165,6 +166,14 @@ class HashGridRF(nn.Module):
 
     def compute_appfeature(self, xyz):
         return self.app_mlp(self.encoding(self._unit(xyz[..., :3])))
+
+    def raw_features(self, xyz):
+        """(the raw density feature (N,), the appearance features) from one
+        encoding of the points: ``compute_densityfeature(xyz,
+        activate=False)`` and ``compute_appfeature(xyz)`` with one K3
+        launch in their backward."""
+        feat = self.encoding(self._unit(xyz[..., :3]))
+        return self.density_mlp(feat)[..., 0], self.app_mlp(feat)
 
     def compute_normals(self, xyz):
         return self.compute_all(xyz, with_normals=True)[2]

@@ -10,7 +10,9 @@ has no parameters, so none has a state-dict key.
   angles (theta, phi), attenuated; ``ISH`` stacks degrees 1, 2, 4, ...;
 - ``RandISH``: ``rand_n`` randomly rotated single-degree bases, two
   channels each; ``RandRotISH``: a core ListISH and ``rand_n`` rotated
-  copies of a high-degree ListISH.
+  copies of a high-degree ListISH;
+- ``LHyperGeom``: a truncated hypergeometric series (no builder target
+  reaches it, in nmf_tpu either).
 
 The random rotations are nmf_tpu's: angles U(0, 2 pi) of
 ``numpy.random.default_rng(seed)`` turned into extrinsic x-y-z rotation
@@ -191,3 +193,38 @@ class RandRotISH(_Rotated):
         rrough = roughness.reshape(B, 1).expand(B, self.rand_n).reshape(-1)
         return torch.cat([self.core(vec, roughness),
                           self.rand(rvecs, rrough).reshape(B, -1)], dim=-1)
+
+
+class LHyperGeom:
+    """Truncated generalized hypergeometric series
+    sum_k prod (upper)_k / prod (lower)_k x^k / k! over k < N, the rising
+    factorials (a)_k taken in float64 on the host and the series in the
+    dtype of ``x``; nmf_tpu's, used by its fractional-degree Y0
+    experiments. No builder target reaches it."""
+
+    def __init__(self, upper=(), lower=(), N=20):
+        self.upper = tuple(upper)
+        self.lower = tuple(lower)
+        self.N = int(N)
+
+    @staticmethod
+    def _rising(z, m):
+        if m == 0:
+            return 1.0
+        if z < 0 and z % 1 == 0:
+            return 0.0
+        return math.gamma(z + m) / math.gamma(z)
+
+    def coeffs(self):
+        """(upper products / k!, lower products) for k < N, float64."""
+        up = [math.prod(self._rising(a, k) for a in self.upper)
+              / math.factorial(k) for k in range(self.N)]
+        lo = [math.prod(self._rising(a, k) for a in self.lower)
+              for k in range(self.N)]
+        return up, lo
+
+    def __call__(self, x):
+        up, lo = (torch.tensor(c, dtype=x.dtype, device=x.device)
+                  for c in self.coeffs())
+        expx = x[..., None] ** torch.arange(self.N, device=x.device)
+        return (up * expx / lo).sum(dim=-1)

@@ -2,8 +2,9 @@
 (``nmf_tpu/modules/render_modules.py``): the ``PE`` and ``IPE`` encoders,
 ``MLPRenderFea`` and ``MLPRenderPE`` (tensorf), the material heads
 ``RandHydraMLPDiffuse``, ``HydraMLPDiffuse``, ``MLPDiffuse`` and
-``PassthroughDiffuse`` (microfacet, Ref-NeRF), and the predicted-normal
-heads ``MLPNormal`` and ``AppDimNormal``.
+``PassthroughDiffuse`` (microfacet, Ref-NeRF), the predicted-normal
+heads ``MLPNormal`` and ``AppDimNormal``, and the
+``LearnableSphericalEncoding``, which no builder target reaches.
 
 A material head maps (pts (M, 4): position and footprint, viewdirs,
 features) to (albedo (M, 3), tint (M, 3), matprop), where matprop holds
@@ -14,6 +15,7 @@ leaves) so the initial albedo and roughness hit their targets.
 """
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -393,3 +395,50 @@ class AppDimNormal(nn.Module):
     def forward(self, pts, features, geo_norms=None):
         raw = features[..., 0:3]
         return raw / (torch.linalg.norm(raw, dim=-1, keepdim=True) + 1e-8)
+
+
+def fibonacci_sphere(n: int, eps: float):
+    """(3, n) evenly distributed points on the unit sphere (an offset
+    Fibonacci lattice), computed in float64 and stored in float32."""
+    indices = np.arange(n, dtype=np.float64)
+    golden = (1 + 5 ** 0.5) / 2
+    phi = np.arccos(1 - 2 * (indices + eps) / (n - 1 + 2 * eps))
+    theta = 2 * np.pi * indices / golden
+    xyz = np.stack([np.cos(theta) * np.sin(phi),
+                    np.sin(theta) * np.sin(phi),
+                    np.cos(phi)], axis=0)
+    return torch.tensor(xyz, dtype=torch.float32)
+
+
+class LearnableSphericalEncoding(nn.Module):
+    """Learned features ``weights`` (1, M, C) on a Fibonacci sphere lattice
+    ``sphere_pos`` (3, M; a buffer), read by a Gaussian kernel over the
+    angular distance of a direction to each lattice point, normalized over
+    the lattice. No builder target reaches it, in nmf_tpu either."""
+
+    def __init__(self, weights, sphere_pos, lr=1e-3):
+        super().__init__()
+        self.weights = nn.Parameter(weights)
+        self.register_buffer("sphere_pos", sphere_pos)
+        self.lr = float(lr)
+
+    def dim(self):
+        return self.weights.shape[-1]
+
+    def forward(self, vec, sigma):
+        """vec (N, 3); sigma: a scalar or (N, 1) angular stddev."""
+        cos_dist = torch.clamp(vec @ self.sphere_pos, -1 + 1e-5, 1 - 1e-5)
+        ang = torch.arccos(cos_dist)
+        prob = torch.exp(-((ang / sigma) ** 2) / 2)
+        prob = prob / (prob.sum(dim=1, keepdim=True) + 1e-8)
+        return prob @ self.weights[0]
+
+
+def init_learnable_spherical_encoding(out_channels, out_res, generator=None,
+                                      lr=1e-3):
+    """nmf_tpu's ``init_learnable_spherical_encoding``: weights U(0, 1),
+    the lattice's offset by ``out_res``."""
+    eps = 0.33 if out_res < 24 else (1.33 if out_res < 177 else 3.33)
+    weights = torch.rand((1, out_res, out_channels), generator=generator)
+    return LearnableSphericalEncoding(weights, fibonacci_sphere(out_res, eps),
+                                      lr=lr)

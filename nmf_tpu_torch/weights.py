@@ -162,14 +162,18 @@ def from_jax_state_dict(nmf, sd):
     shape (an upsampled or shrunk field's), the grid size is read from
     them and the sampler's geometry re-derived before the other entries,
     the sampler's own arrays (alpha mask, occupancy grid, box) among them,
-    are copied."""
+    are copied. ``nmf`` may also be a lone module (no ``rf``), whose keys
+    are then its own paths."""
     filled = set()
 
     def plane_shapes():
         # the factor fields' planes (a ListRF's fields', each); the other
-        # fields never change shape here, or take it from their leaves
+        # fields never change shape here, or take it from their leaves. A
+        # module without a field (a lone shading module) has none.
+        rf = getattr(nmf, "rf", None)
         return {id(m): [tuple(p.shape) for p in m.density_rf.planes]
-                for m in nmf.rf.modules() if hasattr(m, "density_rf")}
+                for m in (rf.modules() if rf is not None else ())
+                if hasattr(m, "density_rf")}
 
     # a freshly built field's planes are square at its first axis'
     # resolution, whatever its grid size; planes of another shape are an

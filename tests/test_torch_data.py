@@ -300,8 +300,14 @@ def test_loader_matches(tmp_path, case):
 
 @pytest.mark.parametrize("name", ["nsvf", "tankstemple"])
 def test_unported_loaders_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tload({"dataset_name": name, "scenedir": "x"}, "/nonexistent")
+    """The NSVF and Tanks and Temples loaders are ported (their parity
+    tests: test_torch_a4.py); a scene folder that does not exist raises
+    in the port as in nmf_tpu."""
+    cfg = {"dataset_name": name, "scenedir": "x"}
+    with pytest.raises(OSError):
+        jblender.load_dataset(cfg, "/nonexistent")
+    with pytest.raises(OSError):
+        tload(cfg, "/nonexistent")
 
 
 def test_studio_scene_in_nerf_synthetic_layout_loads_back(tmp_path):

@@ -255,7 +255,11 @@ def test_load_dataset_matches():
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
-    # blender and llff load since their slices (tests/test_torch_data.py,
-    # tests/test_torch_llff.py); nsvf waits for a shipped config
-    with pytest.raises(NotImplementedError):
-        tload({"dataset_name": "nsvf", "scenedir": "x"}, None)
+    # the file loaders are held in their own tests (test_torch_data.py,
+    # test_torch_llff.py, test_torch_a4.py); without a datadir nsvf
+    # fails in both packages alike
+    cfg = {"dataset_name": "nsvf", "scenedir": "x"}
+    with pytest.raises(TypeError):
+        jload(cfg, None)
+    with pytest.raises(TypeError):
+        tload(cfg, None)

@@ -169,7 +169,13 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'nmf_tpu')]\n"
         "assert not bad, bad\n"
         "for m in ('ckpt', 'logging_utils', 'data.synthetic', 'train',\n"
-        "          'data.blender', 'data.exr'):\n"
+        "          'data.blender', 'data.exr', 'data.nsvf',\n"
+        "          'data.exr_native',\n"
+        "          'ops.marching', 'ops.optics', 'scripts.fit_field',\n"
+        "          'scripts.export_mesh', 'scripts.graph_brdfs',\n"
+        "          'scripts.reeval', 'scripts.tabularize',\n"
+        "          'scripts.colmap2nerf', 'scripts.llff2nerf',\n"
+        "          'scripts.collect_env'):\n"
         "    assert 'nmf_tpu_torch.' + m in sys.modules, m\n"
         "other = [k for k in sys.modules if k.split('.')[0] in "
         "('cv2', 'imageio')]\n"
@@ -210,6 +216,53 @@ def test_ported_targets_build(target):
     assert sorted(tsd) == sorted(jsd)
     for k, v in jsd.items():
         assert tsd[k].shape == v.shape, k
+
+
+# every fallthrough of the builders (ROADMAP C.14): (override, what
+# nmf_tpu does with it: the class it builds at ``attr``, or the exception)
+FALLTHROUGHS = {
+    "field": ("model.arch.rf._target_=fields.other.OtherRF", ValueError),
+    "sampler": ("model.arch.sampler._target_=samplers.ngp_pl.NGPSampler",
+                "sampler"),
+    "brdf_sampler": ("model.arch.model.brdf_sampler._target_="
+                     "modules.brdf_samplers.OtherSampler", ValueError),
+    "visibility": ("model.arch.model.visibility_module._target_="
+                   "modules.other.OtherVis", ValueError),
+    "bright_sampler": ("model.arch.model.bright_sampler._target_="
+                       "modules.other.OtherBright", ValueError),
+    "brdf": ("model.arch.model.brdf._target_=modules.brdf.OtherBRDF",
+             "model.brdf"),
+    "model": ("model.arch.model._target_=models.other.OtherModel",
+              ValueError),
+    "normal_module": ("model.arch.normal_module._target_="
+                      "modules.other.OtherNormal", ValueError),
+    "bg": ("model.arch.bg_module._target_=modules.other.OtherEnv",
+           ValueError),
+}
+
+
+@pytest.mark.parametrize("site", list(FALLTHROUGHS))
+def test_builder_fallthroughs_match_nmf_tpu(site):
+    """An unknown target at each fallthrough of the builders: both
+    packages raise the same exception class, or build the same class
+    (the AlphaGridSampler for any other sampler, the MLPBRDF for any other
+    BRDF)."""
+    override, expect = FALLTHROUGHS[site]
+    cfg = ttrain.config_lib.compose([*FLAGSHIP, override])
+    arch = cfg["model"]["arch"]
+    if isinstance(expect, type):
+        with pytest.raises(expect):
+            jbuild(jax.random.PRNGKey(0), arch, AABB, NEAR_FAR)
+        with pytest.raises(expect, match="unknown"):
+            tbuild(arch, AABB, NEAR_FAR, device="cpu")
+        return
+    jn = jbuild(jax.random.PRNGKey(0), arch, AABB, NEAR_FAR)
+    tn = tbuild(arch, AABB, NEAR_FAR, device="cpu")
+    jobj, tobj = jn, tn
+    for name in expect.split("."):
+        jobj, tobj = getattr(jobj, name), getattr(tobj, name)
+    assert type(tobj).__name__ == type(jobj).__name__
+    assert type(tobj).__name__ in ("AlphaGridSampler", "MLPBRDF")
 
 
 def test_unported_targets_raise():
