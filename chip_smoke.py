@@ -250,6 +250,28 @@
    Every K1 / K2 / K3 launch of paths 8 to 22 must be at a size held
    by the kernel checks or held after the lanes on the ids it launched
    with; paths 8 to 21 must clear 17 dB.
+23. The bench path, after the lanes (alone on the card): the measurement
+   scripts of nmf_tpu_torch/scripts at nmf_tpu's sizes. bench_scatter:
+   the alpha-mask lookups (M = 4096 x 440 at G = 32, 128, 200, every
+   variant reading the scalar gather's values); the scatter variants on
+   bf16 payloads (plain index_add_, sort + index_add_, chunk-combine),
+   each within twice plain index_add_'s error (or 2^-8) of the f32 sum;
+   K3 against zeros + index_add_ at N = 262,144 (C = 288, R = 90,000 and
+   C = 12, R = 691,456, uniform and hot ids: 90% on 64 rows), within 1e-5
+   of the largest sum. bench_gather (3 planes of 72 x 300^2, 4096 x 128
+   queries, bf16; the rows layout's backward is K3 at N = 524,288, C =
+   72). bench_shade on its flagship (grid 128, envmap 512, 128 / 64
+   samples, budgets (32768, 8192), 1024 retrace rays): K1 / K2 at 4096 x
+   128 beside raw2alpha, compaction, the alpha lookup, the stub shade at
+   M = 524,288 (K3 at the bench budgets), the secondary render (K1 at
+   1024 x 64). bisect_shade: stage 0's loss and gradients against the
+   unpatched step on the same draws (within twice the step's own spread
+   between two runs, or 1e-5 of the loss and 1e-4 of a gradient's largest
+   entry), then stages 0-7, -1 and -2 timed; parse_trace on a Chrome
+   trace of three bisect steps within 5% of the profiler's own device
+   time. Its launches at sizes the checks did not hold are held after it
+   (hold_new_sizes; K1 / K2 timed; the bounce rays' K3 sizes, where the
+   random-init model allocates no ray, on walk ids).
 
 Prints one JSON line of kernel numbers and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
@@ -785,12 +807,12 @@ class BinsumRecorder:
     sizes the kernel's check held), at each size not in it, of its first
     launch whose in-range ids touch HELD_MIN_ROWS rows (until then, of the
     launch that touched most), through a hook around ``binsum_rows`` where
-    its callers (``ops.grid_sample``, ``ops.masked``) look it up, and a
-    count of ``trainer.train_step`` calls. Entries (``entries``, ``new`` by
-    size): (step, idx copy, C, R, dtype); ``touched`` by size: the rows
-    that ``new``'s entry touches."""
+    its callers (``ops.grid_sample``, ``ops.masked`` and the modules
+    ``callers``) look it up, and a count of ``trainer.train_step`` calls.
+    Entries (``entries``, ``new`` by size): (step, idx copy, C, R, dtype);
+    ``touched`` by size: the rows that ``new``'s entry touches."""
 
-    def __init__(self, steps, held=None):
+    def __init__(self, steps, held=None, callers=()):
         from nmf_tpu_torch import trainer
         from nmf_tpu_torch.ops import grid_sample, masked
         from nmf_tpu_torch.ops.kernels.binsum import DTYPE_CODES
@@ -798,7 +820,8 @@ class BinsumRecorder:
         self.steps, self.step, self.entries = set(steps), -1, []
         self.held, self.new, self.touched = held, {}, {}
         self.codes = DTYPE_CODES
-        self.callers, self.trainer = (grid_sample, masked), trainer
+        self.callers = (grid_sample, masked, *callers)
+        self.trainer = trainer
         self.binsum, self.train_step = masked.binsum_rows, trainer.train_step
 
     def __enter__(self):
@@ -1243,16 +1266,18 @@ MAIN_PATHS = (
 
 
 def hold_new_sizes(torch, dev, gen, kernels, label, by_size, recorder,
-                   deferred):
+                   deferred, timed=False, empty_ok=False):
     """Holds each launch of a path at sizes that the kernels' checks did
     not hold (the occupancy grid's rows, the NDC box's field rows, the
     batch the controller chose): K1 and K2 at each new (B, K) with their
-    plain versions on ``composite_inputs`` (both modes, not timed); K3 at
+    plain versions on ``composite_inputs`` (both modes, timed as the
+    checks time theirs if ``timed``); K3 at
     each new size on walks of synthetic ids (``walk_ids``, 1% out of
     range) and on the ids recorded at the size's first launch that touched
     HELD_MIN_ROWS rows (``recorder``: a BinsumRecorder given ``held``),
     replayed by ``replay_binsum`` (its device time ``deferred``). Fails if
-    no launch at a new size touched that many rows. The rows join the
+    no launch at a new size touched that many rows, unless ``empty_ok``:
+    then that size is replayed on the walk ids. The rows join the
     kernels' shapes; launches made here are not counted (the path's
     counts were read before)."""
     from nmf_tpu_torch.ops.kernels import binsum as S
@@ -1262,17 +1287,21 @@ def hold_new_sizes(torch, dev, gen, kernels, label, by_size, recorder,
     for B, K in sorted(set().union(*(set(by_size[n]) - held[n]
                                      for n in comp))):
         for full in (False, True):
-            fwd, bwd = composite_case(torch, dev, gen, None, B, K, full,
-                                      True, False)
+            fwd, bwd = composite_case(torch, dev, gen, deferred, B, K,
+                                      full, True, timed)
             for n, row in (("composite_fwd", fwd), ("composite_bwd", bwd)):
                 if (B, K) not in held[n]:
-                    comp[n]["shapes"].append(row | {"path": label})
+                    # in place: a timed row's deferred device times land
+                    # in it
+                    row["path"] = label
+                    comp[n]["shapes"].append(row)
         print(f"{label}: K1/K2 at new size B={B} K={K} held, max_abs_err "
               f"{fwd['max_abs_err']:.3e} / {bwd['max_abs_err']:.3e}")
     binsum = next(k for k in kernels if k["name"] == "binsum_rows")
     for size, entry in sorted(recorder.new.items()):
         step, _, C, R, dtype = entry
-        if recorder.touched[size] < HELD_MIN_ROWS:
+        empty = recorder.touched[size] < HELD_MIN_ROWS
+        if empty and not empty_ok:
             fail(f"{label}: no K3 launch at size {size} touched "
                  f"{HELD_MIN_ROWS} rows (at most {recorder.touched[size]}),"
                  " so its recorded ids cannot hold the kernel")
@@ -1285,11 +1314,14 @@ def hold_new_sizes(torch, dev, gen, kernels, label, by_size, recorder,
                             rtol, atol,
                             f"{label} binsum new size {size}, walk ids")
         # the row itself joins the shapes: its deferred device time lands
-        # in it
-        [row] = replay_binsum(torch, dev, gen, [entry], (), deferred)
+        # in it; a size whose launches touched no rows is replayed on the
+        # walk ids
+        replayed = (step, idx, C, R, dtype) if empty else entry
+        [row] = replay_binsum(torch, dev, gen, [replayed], (), deferred)
         row.update(shape=f"{label} step {step} N={size[0]} C={C} R={R} "
                          f"{str(dtype)[6:]}", path=label,
-                   walk_max_abs_err=synth_err)
+                   walk_max_abs_err=synth_err,
+                   replayed_on="walk ids" if empty else "recorded ids")
         binsum["shapes"].append(row)
         del idx, vals
     print(f"{label}: K3 held at {len(recorder.new)} sizes first launched on "
@@ -3726,6 +3758,165 @@ def check_small_distill(torch, dev):
 # marked scenes); the largest on the card, refnerf_tcnn, allocates
 # ~8 GiB in a lane's process.
 # the paths in the order the main process holds them and reports them
+# The bench path: nmf_tpu's measurement scripts, ported to
+# nmf_tpu_torch/scripts, at their own sizes, in this process after the
+# lanes (nothing else on the card): bench_scatter's alpha lookups,
+# scatter variants and K3 against index_add_ (four sizes, hot ids among
+# them), bench_gather's two layouts (K3 at N = 524,288, C = 72, bf16),
+# bench_shade's lines (K1 / K2 at 4096 x 128, the stub shade's K3 at the
+# bench budgets), bisect_shade's stages and parse_trace on a profiled
+# window of the bisect's step. Its launches at new sizes are held after
+# it, K1 / K2 timed. The bench's random-init model allocates no bounce ray
+# (each sample's share, thinned to the budget, rounds to 0, as in
+# nmf_tpu's bench; the budget's slots are computed all the same), so the
+# bounce rays' segment sums and parent gathers launch with every id out
+# of range or on one row: those sizes are held and timed on walk ids.
+BISECT_STAGES = (0, 1, 2, 3, 4, 5, 6, 7, -1, -2)
+TRACE_STEPS = 3
+# K3 against zeros + index_add_ on the same f32 rows: the atomics add in
+# another order (a hot row sums ~3,700 unit-scale values): 1e-5 of the
+# largest sum
+BINSUM_REL_TOL = 1e-5
+# a bf16 scatter variant against the f32 sum of the same bf16 payload: no
+# worse than twice plain index_add_'s own error (bf16 sums round at every
+# add, in an order the atomics choose), or 2^-8 of the largest sum
+SCATTER_ERR_FACTOR, SCATTER_ERR_FLOOR = 2.0, 2.0 ** -8
+# bisect stage 0 against the unpatched step on the same draws: within
+# twice the unpatched step's own spread between two runs (K3's atomics
+# reorder f32 sums) or 1e-5 of the loss / 1e-4 of a gradient's largest
+# entry, whichever is larger
+STAGE0_LOSS_RTOL, STAGE0_GRAD_RTOL, STAGE0_SPREAD = 1e-5, 1e-4, 2.0
+# parse_trace's total device time against the profiler's own kernel sum
+TRACE_RTOL = 0.05
+
+
+def check_scatter_rows(rows):
+    """bench_scatter's variants against plain index_add_ (the bf16
+    tolerance above)."""
+    plain = {(r["M"], r["T"], r["D"], r["dist"]): r["f32_err"] for r in rows
+             if r["variant"] == "plain index_add_"}
+    for r in rows:
+        limit = max(SCATTER_ERR_FACTOR * plain[r["M"], r["T"], r["D"],
+                                               r["dist"]],
+                    SCATTER_ERR_FLOOR)
+        if not r["f32_err"] <= limit:
+            fail(f"bench_scatter {r['variant']} at M={r['M']} T={r['T']} "
+                 f"D={r['D']} {r['dist']}: error {r['f32_err']:.3e} against "
+                 f"the f32 sum, over {limit:.3e}")
+
+
+def check_stage0(torch, bisect_shade, nmf, rays, rgbs):
+    """Bisect stage 0's loss and gradients against the unpatched step's, on
+    the same draws (STAGE0_*). Returns the largest gradient error over its
+    tensor's largest entry."""
+    loss, grads = bisect_shade.loss_grads(nmf, rays, rgbs, seed=1)
+    again, grads_again = bisect_shade.loss_grads(nmf, rays, rgbs, seed=1)
+    with bisect_shade.staged(0):
+        loss0, grads0 = bisect_shade.loss_grads(nmf, rays, rgbs, seed=1)
+
+    def limit(spread, floor):
+        return max(STAGE0_SPREAD * spread, floor)
+
+    if not abs(float(loss0) - float(loss)) <= limit(
+            abs(float(again) - float(loss)),
+            STAGE0_LOSS_RTOL * abs(float(loss))):
+        fail(f"bisect stage 0: loss {float(loss0)} against the step's "
+             f"{float(loss)} ({float(again)} again)")
+    worst = 0.0
+    for i, (a, b, c) in enumerate(zip(grads0, grads, grads_again)):
+        if (a is None) != (b is None):
+            fail(f"bisect stage 0: gradient {i} present in only one run")
+        if a is None:
+            continue
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        spread = float((c - b).abs().max())
+        if not (torch.isfinite(a).all()
+                and err <= limit(spread, STAGE0_GRAD_RTOL * scale)):
+            fail(f"bisect stage 0: gradient {i} off by {err:.3e} (largest "
+                 f"entry {scale:.3e}, the step's own spread {spread:.3e})")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"bench: bisect stage 0 against the unpatched step: loss "
+          f"{float(loss0):.7f} / {float(loss):.7f}, worst gradient error "
+          f"{worst:.2e} of its tensor's largest")
+    return worst
+
+
+def check_trace(torch, bisect_shade, parse_trace, nmf, rays, rgbs):
+    """parse_trace on a Chrome trace of TRACE_STEPS bisect steps (stage 0
+    is the step) against the profiler's own sum of device time over the
+    same window. Returns (parse_trace ms, profiler ms) a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nmf_tpu_torch.scripts.profile_step import device_time_us
+
+    trace_dir = LOG_DIR / "bench_trace"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    bisect_shade.loss_grads(nmf, rays, rgbs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_STEPS):
+            bisect_shade.loss_grads(nmf, rays, rgbs)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_dir / "bisect_step.json"))
+    own = sum(device_time_us(e) for e in prof.key_averages()
+              if e.device_type.name == "CUDA") / 1e3 / TRACE_STEPS
+    if parse_trace.main([str(trace_dir), "--top", "15", "--group",
+                         "--steps", str(TRACE_STEPS)]) != 0:
+        fail("parse_trace: no device events in the bisect step's trace")
+    parsed = sum(parse_trace.device_op_times(parse_trace.load_trace(
+        parse_trace.newest_trace(trace_dir))).values()) / TRACE_STEPS
+    print(f"bench: parse_trace total device time {parsed:.3f} ms a step, "
+          f"the profiler's own kernel sum {own:.3f} ms")
+    if not abs(parsed - own) <= TRACE_RTOL * own:
+        fail(f"parse_trace: {parsed:.3f} ms a step against the profiler's "
+             f"{own:.3f} ms")
+    return parsed, own
+
+
+def bench_path(torch, dev):
+    """The bench path's run for ``drive_main_path``: each script's lines,
+    held as the constants above say."""
+    from nmf_tpu_torch.scripts import (bench_gather, bench_scatter,
+                                       bench_shade, bisect_shade,
+                                       parse_trace)
+
+    def run(log):
+        t0 = time.time()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        bench_scatter.bench_alpha(gen)
+        check_scatter_rows(bench_scatter.bench_scatter(gen))
+        for r in bench_scatter.bench_binsum(gen):
+            what = f"M={r['M']} T={r['T']} D={r['D']} {r['dist']}"
+            if not r["rel_err"] <= BINSUM_REL_TOL:
+                fail(f"bench_binsum at {what}: K3 off index_add_ by "
+                     f"{r['rel_err']:.3e} of the largest sum")
+            # ids, f32 rows read once; the touched rows written once
+            b, by = bound_ms(4 * r["M"] * (1 + r["D"])
+                             + 4 * r["touched"] * r["D"], r["M"] * r["D"])
+            print(f"bench_binsum at {what}: {r['touched']} rows touched, "
+                  f"K3 {r['binsum_ms']:.4f} ms (its memset included), "
+                  f"zeros + index_add_ {r['index_add_ms']:.4f} ms, bound "
+                  f"{b:.4f} ms by {by}")
+        bench_gather.bench(gen)
+        nmf, _ = bench_shade.bench_nmf(device=dev, **bench_shade.BENCH_SIZES)
+        bench_shade.bench(nmf, gen)
+        nmf.model.max_retrace_rays = ()
+        rays, rgbs = bisect_shade.bisect_rays(bisect_shade.B_RAYS, dev)
+        stage0 = check_stage0(torch, bisect_shade, nmf, rays, rgbs)
+        stages = bisect_shade.bisect(nmf, rays, rgbs, BISECT_STAGES)
+        parsed, own = check_trace(torch, bisect_shade, parse_trace, nmf,
+                                  rays, rgbs)
+        seconds = time.time() - t0
+        del nmf
+        return ({"rays_per_sec": bisect_shade.B_RAYS * 1e3 / stages[0],
+                 "stage0_grad_err": stage0, "trace_ms": parsed,
+                 "profiler_ms": own}, seconds, "")
+
+    return run
+
+
 PATH_ORDER = ("tensorf", "microfacet_tensorf2", "studio", "blender",
               "lego_size", "relight", "compose", "dual_scene", "hdr",
               "budgets", "extras", "occgrid", "occgrid_crop", "llff",
@@ -4112,6 +4303,21 @@ def main():
         fail("dualref: K1 never launched at the retrace shape 1024 x 96 "
              "after the switch")
 
+    # ---- the bench path, alone on the card; its launches at new sizes
+    # held after it ----
+    from nmf_tpu_torch.scripts import bench_scatter
+
+    t_bench = time.time()
+    with BinsumRecorder((), held={r["sizes"] for r in binsum["shapes"]},
+                        callers=(bench_scatter,)) as rec:
+        launches["bench"], by_size["bench"], _ = drive_main_path(
+            torch, kernels, "bench", card, 1, bench_path(torch, dev),
+            psnr_bar=None, trains=False,
+            hold=lambda sizes: hold_new_sizes(torch, dev, gen, kernels,
+                                              "bench", sizes, rec, deferred,
+                                              timed=True, empty_ok=True))
+    print(f"chip_smoke: bench path {time.time() - t_bench:.1f} s")
+
     def ms_or_not(t):
         return "not measured" if t is None else f"{t:.4f} ms"
 
@@ -4143,7 +4349,8 @@ def main():
             if "walk_max_abs_err" in row:
                 print(f"kernel binsum_rows at a new size of {row['path']} "
                       f"step {row['step']} (N, C, R, dtype code "
-                      f"{row['sizes']}, {row['touched_rows']} rows touched):"
+                      f"{row['sizes']}, {row['touched_rows']} rows touched "
+                      f"by the {row['replayed_on']}):"
                       f" max_abs_err {row['max_abs_err']:.3e} (walk ids "
                       f"{row['walk_max_abs_err']:.3e}), device L2-cold "
                       f"{ms_or_not(row['device_cold_ms'])}, index_add_ "

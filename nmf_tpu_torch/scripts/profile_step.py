@@ -26,13 +26,19 @@ profiles the sample budgets (chip_smoke.py's budgets knobs). For each window it
 prints the step time (CUDA events, profiler off), the device-busy share of
 the profiled window, and the kernels ranked by device time per step,
 grouped into classes (composite K1 and K2 and binsum K3 apart). Needs a
-CUDA device.
+CUDA device. ``--trace DIR`` also writes each profiled window as
+torch.profiler's Chrome-trace JSON under DIR (``<model>_it<i>.json``),
+which ``scripts/parse_trace.py`` reads.
+
+``timeit`` is the timer of the bench scripts (``bench_shade.py``,
+``bisect_shade.py``).
 """
 import argparse
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -88,7 +94,34 @@ def device_time_us(evt):
     return 0.0
 
 
-def profile_window(step, n):
+def timeit(fn, *args, n=10):
+    """Milliseconds a call of ``fn(*args)``: one warmup call, then the
+    best of 3 repeats of ``n`` back-to-back calls, between CUDA events
+    where torch sees a card (PyTorch launches asynchronously: the end
+    event waits for the device), on the host clock where it does not."""
+    fn(*args)
+    best = float("inf")
+    for _ in range(3):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn(*args)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(*args)
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms / n)
+    return best
+
+
+def profile_window(step, n, trace=None):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -106,6 +139,8 @@ def profile_window(step, n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
     kernels = [(e.key, device_time_us(e) / 1e3 / n, e.count / n)
                for e in prof.key_averages()
                if e.device_type.name == "CUDA" and device_time_us(e) > 0]
@@ -130,6 +165,8 @@ def report(label, step_ms, wall_ms, kernels, top=25):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--trace", type=Path, default=None,
+                    help="write each profiled window's Chrome trace here")
     args, overrides = ap.parse_known_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: needs a CUDA device")
@@ -169,6 +206,12 @@ def main(argv=None):
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi or torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
+    def trace(it):
+        if args.trace is None:
+            return None
+        args.trace.mkdir(parents=True, exist_ok=True)
+        return args.trace / f"{model}_it{it}.json"
+
     for it in range(max(windows) + 1):
         metrics = step()
         batch.after_step(it, metrics["n_valid_samples"])
@@ -183,7 +226,8 @@ def main(argv=None):
                    f"grid {grid}, batch "
                    f"{batch.size}, N={nmf.sampler.n_samples} "
                    f"K={nmf.max_samples_per_ray}, {valid:.1f} valid "
-                   f"samples/ray{thin}", *profile_window(step, args.steps))
+                   f"samples/ray{thin}", *profile_window(step, args.steps,
+                                                         trace(it)))
         if nmf.check_schedule(it + 1):
             opt = make_optimizer(nmf, params, n_iters)
             state["l1_rest"] = True

@@ -50,6 +50,17 @@ from nmf_tpu_torch.scripts import (colmap2nerf, collect_env,  # noqa: E402
 from torch_parity import close  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny shapes run fastest on one thread, and the test workers
+    share the CPU cores (torch's thread pool beside JAX's oversubscribes
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_dataset_cache(monkeypatch):
     monkeypatch.setenv("NMF_DATASET_CACHE", "")

@@ -26,7 +26,19 @@ from nmf_tpu_torch import train as ttrain  # noqa: E402
 from nmf_tpu_torch import trainer as ttrainer  # noqa: E402
 from nmf_tpu_torch import weights  # noqa: E402
 from torch_inputs import FLAGSHIP  # noqa: E402
-from torch_parity import build_flagship_pair, build_pair  # noqa: E402
+from torch_parity import (build_flagship_pair, build_pair,  # noqa: E402
+                          port_copy)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny shapes run fastest on one thread, and the test workers
+    share the CPU cores (torch's thread pool beside JAX's oversubscribes
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -51,21 +63,34 @@ TINY_RUN = [
     "progress_refresh_rate=5"]
 
 
-def _pair(model, shape, extra=()):
-    extra = [*(FIXED if shape == "fixed" else []), *extra]
-    if model == "tensorf":
-        return build_pair("f32", extra)
-    return build_flagship_pair(extra)
+@pytest.fixture(scope="module")
+def pairs():
+    """``pairs(model, shape, extra)``: nmf_tpu's tiny model, built once a
+    module for each (model, shape, extra), and a fresh port copy of it for
+    each case (a schedule event changes the port's model in place)."""
+    built = {}
+
+    def _pair(model, shape, extra=()):
+        key = (model, shape, tuple(extra))
+        if key not in built:
+            ov = [*(FIXED if shape == "fixed" else []), *extra]
+            jn, _, cfg = (build_pair("f32", ov) if model == "tensorf"
+                          else build_flagship_pair(ov))
+            built[key] = jn, cfg
+        jn, cfg = built[key]
+        return jn, port_copy(jn, cfg), cfg
+
+    return _pair
 
 
 @pytest.mark.parametrize("stage", ["built", "after events"])
 @pytest.mark.parametrize("shape", ["exact", "fixed"])
 @pytest.mark.parametrize("model", ["tensorf", "flagship"])
-def test_state_dict_matches_nmf_tpu(model, shape, stage):
+def test_state_dict_matches_nmf_tpu(pairs, model, shape, stage):
     """to_jax_state_dict gives nmf_tpu's keys, shapes, dtypes and values,
     also after an upsample and a mask rebuild (the alpha volumes change
     shape, or keep the padded one)."""
-    jn, tn, _ = _pair(model, shape, EVENTS)
+    jn, tn, _ = pairs(model, shape, EVENTS)
     if stage == "after events":
         jn, changed = jn.check_schedule(2)
         assert changed and tn.check_schedule(2)
@@ -98,11 +123,11 @@ def _assert_renders_match(jm, tm):
 
 
 @pytest.mark.parametrize("shape", ["exact", "fixed"])
-def test_nmf_tpu_checkpoint_loads_into_the_port(tmp_path, shape):
+def test_nmf_tpu_checkpoint_loads_into_the_port(pairs, tmp_path, shape):
     """A file of nmf_tpu.ckpt.save (a model built by build_nmf, upsampled
     and its mask rebuilt, no training) loads through the port's ckpt.load
     and renders as nmf_tpu renders it."""
-    jn, _, cfg = _pair("tensorf", shape,
+    jn, _, cfg = pairs("tensorf", shape,
                        ["model.arch.max_samples_per_ray=32", *EVENTS])
     jn, _ = jn.check_schedule(2)
     jckpt.save(tmp_path / "j.th", jn, cfg, extra={"iteration": 2})
@@ -113,11 +138,11 @@ def test_nmf_tpu_checkpoint_loads_into_the_port(tmp_path, shape):
 
 
 @pytest.mark.parametrize("shape", ["exact", "fixed"])
-def test_port_checkpoint_loads_into_nmf_tpu(tmp_path, shape):
+def test_port_checkpoint_loads_into_nmf_tpu(pairs, tmp_path, shape):
     """A file of the port's ckpt.save (after its own upsample and mask
     rebuild) holds numpy arrays and builtins only, loads through
     nmf_tpu.ckpt.load, and renders as the port renders it."""
-    _, tn, cfg = _pair("tensorf", shape,
+    _, tn, cfg = pairs("tensorf", shape,
                        ["model.arch.max_samples_per_ray=32", *EVENTS])
     assert tn.check_schedule(2)
     tckpt.save(tmp_path / "t.th", tn, cfg, extra={"iteration": 2})

@@ -12,6 +12,17 @@ from nmf_tpu import ckpt as jckpt  # noqa: E402
 from nmf_tpu_torch import weights  # noqa: E402
 from torch_parity import build_pair  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny shapes run fastest on one thread, and the test workers
+    share the CPU cores (torch's thread pool beside JAX's oversubscribes
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _points(n=400, seed=0):
     rng = np.random.default_rng(seed)
     xyz = rng.uniform(-1.6, 1.6, (n, 3)).astype(np.float32)

@@ -18,6 +18,17 @@ from torch_parity import build_pair  # noqa: E402
 THRES = "model.arch.sampler.alphaMask_thres=0.0021"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny shapes run fastest on one thread, and the test workers
+    share the CPU cores (torch's thread pool beside JAX's oversubscribes
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rays(n=96, seed=0):
     ds = jload({"dataset_name": "synthetic_sphere", "n_views": 4,
                 "image_size": 16}, None, "train")

@@ -51,6 +51,17 @@ SLICE = ["model.arch.max_samples_per_ray=32", "model.params.n_iters=100",
          "model.params.clip_grad=0.01"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny shapes run fastest on one thread, and the test workers
+    share the CPU cores (torch's thread pool beside JAX's oversubscribes
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_value(tn, key):
     t, transpose = weights.port_tensor(tn, key)
     v = t.detach().numpy()
@@ -175,7 +186,9 @@ def test_port_imports_no_jax():
         "          'scripts.export_mesh', 'scripts.graph_brdfs',\n"
         "          'scripts.reeval', 'scripts.tabularize',\n"
         "          'scripts.colmap2nerf', 'scripts.llff2nerf',\n"
-        "          'scripts.collect_env'):\n"
+        "          'scripts.collect_env', 'scripts.bench_scatter',\n"
+        "          'scripts.bench_gather', 'scripts.bench_shade',\n"
+        "          'scripts.bisect_shade', 'scripts.parse_trace'):\n"
         "    assert 'nmf_tpu_torch.' + m in sys.modules, m\n"
         "other = [k for k in sys.modules if k.split('.')[0] in "
         "('cv2', 'imageio')]\n"

@@ -23,6 +23,17 @@ from torch_parity import (AABB, NEAR_FAR, build_flagship_pair,  # noqa: E402
                           build_pair)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The tiny shapes run fastest on one thread, and the test workers
+    share the CPU cores (torch's thread pool beside JAX's oversubscribes
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_dataset_cache(monkeypatch):
     """Both packages read NMF_DATASET_CACHE; empty turns their scene memo
